@@ -1,0 +1,25 @@
+// Shared helpers of the pressure kernels (rb_sor.cu, mg_vcycle.cu).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define SRCFD_THREADS 256  // threads per block of every kernel here
+#define SRCFD_TX 32        // 2-D blocks: 32 threads along the contiguous axis
+#define SRCFD_TY 8         //             8 along the strided one
+
+// Fixed-order sum over the block's SRCFD_THREADS threads: a tree in shared
+// memory, so the same inputs give the same bits on every run (the exit
+// decisions of the solver loops are taken on these sums). Every thread of
+// the block must call it; every thread gets the total.
+__device__ __forceinline__ float srcfd_block_sum(float v, float* sh) {
+  const int t = threadIdx.x + threadIdx.y * blockDim.x;
+  sh[t] = v;
+  __syncthreads();
+  for (int s = SRCFD_THREADS / 2; s > 0; s >>= 1) {
+    if (t < s) sh[t] += sh[t + s];
+    __syncthreads();
+  }
+  const float total = sh[0];
+  __syncthreads();  // sh may be written again right after the return
+  return total;
+}

@@ -1,0 +1,182 @@
+"""SR model checkpoints: a pure-Python reader of Flax's msgpack format and
+the weight map from Flax's parameter tree to the port's `state_dict`
+(counterpart of `sr_for_cfd_tpu/io/checkpoint.py`).
+
+`flax.serialization.to_bytes` writes msgpack maps whose leaves are numpy
+arrays packed as ext type 1 (payload: msgpack [shape, dtype name, raw
+bytes]), numpy scalars as ext type 3 (the same payload, shape []) and
+Python complex numbers as ext type 2 (payload: msgpack [real, imag]). `read_msgpack` decodes that with the standard library and numpy
+only, so the card's machine loads the shipped weights without msgpack or
+flax installed.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+_EXT_NDARRAY = 1
+_EXT_COMPLEX = 2
+_EXT_NPSCALAR = 3
+
+
+class _Reader:
+    """Minimal msgpack decoder: nil, bool, ints, floats, str, bin, array,
+    map and ext (the subset Flax writes)."""
+
+    def __init__(self, data: bytes):
+        self.data = memoryview(data)
+        self.pos = 0
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.data):
+            raise ValueError("truncated msgpack data")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def value(self) -> Any:
+        b = self.take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self.array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return bytes(self.take(b & 0x1F)).decode("utf-8")
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in simple:
+            return simple[b]
+        sized = {  # code: (struct format of the length, kind)
+            0xC4: (">B", "bin"), 0xC5: (">H", "bin"), 0xC6: (">I", "bin"),
+            0xD9: (">B", "str"), 0xDA: (">H", "str"), 0xDB: (">I", "str"),
+            0xDC: (">H", "array"), 0xDD: (">I", "array"),
+            0xDE: (">H", "map"), 0xDF: (">I", "map"),
+            0xC7: (">B", "ext"), 0xC8: (">H", "ext"), 0xC9: (">I", "ext"),
+        }
+        if b in sized:
+            fmt, kind = sized[b]
+            n = self.unpack(fmt)
+            if kind == "bin":
+                return bytes(self.take(n))
+            if kind == "str":
+                return bytes(self.take(n)).decode("utf-8")
+            if kind == "array":
+                return self.array(n)
+            if kind == "map":
+                return self.map(n)
+            return self.ext(self.unpack(">b"), n)
+        fixext = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
+        if b in fixext:
+            return self.ext(self.unpack(">b"), fixext[b])
+        numbers = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I",
+                   0xCF: ">Q", 0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+        if b in numbers:
+            return self.unpack(numbers[b])
+        raise ValueError(f"unsupported msgpack type byte 0x{b:02x}")
+
+    def array(self, n: int):
+        return [self.value() for _ in range(n)]
+
+    def map(self, n: int) -> Dict:
+        out = {}
+        for _ in range(n):
+            k = self.value()
+            out[k] = self.value()
+        return out
+
+    def ext(self, code: int, n: int):
+        payload = _Reader(bytes(self.take(n)))
+        if code in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            shape, dtype, buf = payload.value()
+            arr = np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape).copy()
+            return arr if code == _EXT_NDARRAY else arr[()]
+        if code == _EXT_COMPLEX:
+            real, imag = payload.value()
+            return complex(real, imag)
+        raise ValueError(f"unsupported msgpack ext type {code}")
+
+
+def read_msgpack(path: str) -> Dict:
+    """Decode a Flax msgpack checkpoint into nested dicts of numpy arrays."""
+    with open(path, "rb") as f:
+        reader = _Reader(f.read())
+    out = reader.value()
+    if reader.pos != len(reader.data):
+        raise ValueError(f"{path}: trailing bytes after the msgpack object")
+    return out
+
+
+def _conv(k: np.ndarray) -> np.ndarray:
+    """Flax Conv kernel (kh, kw, in, out) -> torch (out, in, kh, kw)."""
+    return k.transpose(3, 2, 0, 1)
+
+
+def _conv_transpose(k: np.ndarray) -> np.ndarray:
+    """Flax ConvTranspose kernel (kh, kw, in, out), applied unflipped ->
+    torch ConvTranspose2d weight (in, out, kh, kw), which torch applies
+    flipped: flip spatially, then move the channel axes."""
+    return k[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+def params_from_jax(params: Dict, lr_dim: int, hr_dim: int) -> Dict[str, torch.Tensor]:
+    """Map a Flax `SuperResolutionAE` parameter tree ({'params': {...}} or
+    its inner dict, as numpy arrays) onto the port's `state_dict` keys.
+
+    Flax flattens NHWC activations as (h, w, c); PyTorch flattens NCHW as
+    (c, h, w). The encoder's first Dense and the decoder's Dense therefore
+    get their feature axis permuted to match."""
+    from ..models.autoencoder import DECODER_SPECS, ENCODER_SPECS
+
+    p = params.get("params", params)
+    enc, dec = p["encoder_lr"], p["decoder_hr"]
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(len(ENCODER_SPECS[lr_dim])):
+        layer = enc["conv2d" if i == 0 else f"conv2d_{i}"]
+        sd[f"encoder_lr.convs.{i}.weight"] = _conv(layer["kernel"])
+        sd[f"encoder_lr.convs.{i}.bias"] = layer["bias"]
+    k = enc["dense"]["kernel"]  # (h*w*c, 128), rows in (h, w, c) order
+    c = ENCODER_SPECS[lr_dim][-1][0]
+    hw = int(round((k.shape[0] // c) ** 0.5))
+    k = k.reshape(hw, hw, c, -1).transpose(2, 0, 1, 3).reshape(k.shape[0], -1)
+    sd["encoder_lr.dense.weight"] = k.T
+    sd["encoder_lr.dense.bias"] = enc["dense"]["bias"]
+    sd["encoder_lr.latent_vector.weight"] = enc["latent_vector"]["kernel"].T
+    sd["encoder_lr.latent_vector.bias"] = enc["latent_vector"]["bias"]
+
+    (h, w, c), ladder = DECODER_SPECS[hr_dim]
+    k = dec["dense"]["kernel"]  # (latent, h*w*c), columns in (h, w, c) order
+    k = k.reshape(-1, h, w, c).transpose(0, 3, 1, 2).reshape(k.shape[0], -1)
+    sd["decoder_hr.dense.weight"] = k.T
+    sd["decoder_hr.dense.bias"] = (
+        dec["dense"]["bias"].reshape(h, w, c).transpose(2, 0, 1).reshape(-1))
+    for i in range(len(ladder)):
+        layer = dec[f"conv_transpose_{i}"]
+        sd[f"decoder_hr.deconvs.{i}.weight"] = _conv_transpose(layer["kernel"])
+        sd[f"decoder_hr.deconvs.{i}.bias"] = layer["bias"]
+    sd["decoder_hr.output_conv.weight"] = _conv(dec["output_conv"]["kernel"])
+    sd["decoder_hr.output_conv.bias"] = dec["output_conv"]["bias"]
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in sd.items()}
+
+
+def load_sr_model(path: str, lr_dim: int, hr_dim: int, device="cuda"):
+    """A `SuperResolutionAE` with the weights of a Flax msgpack checkpoint."""
+    from ..models.autoencoder import SuperResolutionAE
+    from ..utils.device import resolve_device
+
+    device = resolve_device(device)
+
+    model = SuperResolutionAE(lr_dim, hr_dim)
+    model.load_state_dict(params_from_jax(read_msgpack(path), lr_dim, hr_dim))
+    return model.to(device).eval()
+

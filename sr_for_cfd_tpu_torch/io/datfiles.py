@@ -1,0 +1,77 @@
+"""Plain-text .dat writers matching the reference formats byte-for-layout
+(a numpy-only copy of `sr_for_cfd_tpu/io/datfiles.py`, kept in the port
+so that it imports nothing of the JAX package; the full-field body is
+written by the Python writer only).
+
+Full-field dump (`LDV PyCFD given by sir.py:245-258`) and centerline
+profiles (`LDV PyCFD given by sir.py:260-285`); the centerline file is the
+format of the golden validation artifact `outputs/bfs_Re400_centerline.dat`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from ..config import MeshParameters
+
+
+def extract_centerlines(
+    var: np.ndarray, mesh: MeshParameters
+) -> Dict[str, np.ndarray]:
+    """Centerline profiles from a (3, nx+2, ny+2) field stack
+    (reference `extract_centerlines`, `PyCFD_ML_accelerated.py:1236-1270`):
+    u along the vertical line at x = lx/2, v along the horizontal line at
+    y = ly/2."""
+    u_vertical = np.asarray(var[0, mesh.nx // 2, 1:-1])
+    v_horizontal = np.asarray(var[1, 1:-1, mesh.ny // 2])
+    return {
+        "y": np.linspace(0, mesh.ly, mesh.ny),
+        "u_centerline": u_vertical,
+        "x": np.linspace(0, mesh.lx, mesh.nx),
+        "v_centerline": v_horizontal,
+    }
+
+
+def save_full_field(
+    filename: str, var: np.ndarray, mesh: MeshParameters, re: float, dt: float
+) -> None:
+    def write_header(f):
+        f.write(f"# Reynolds number: {re}\n")
+        f.write(f"# Mesh: {mesh.nx}x{mesh.ny}\n")
+        f.write(f"# Time step: {dt}\n")
+
+    nvar = var.shape[0]
+    var_names = ["U", "V", "P"]
+    with open(filename, "w") as f:
+        write_header(f)
+        for k in range(nvar):
+            name = var_names[k] if k < 3 else "?"
+            f.write(f"\n# ########## {name} velocity ############ \n")
+            for i in range(mesh.nx + 2):
+                for j in range(mesh.ny + 2):
+                    f.write(f"{var[k, i, j]:.6f} \t")
+                f.write("\n")
+
+
+def save_centerline_data(
+    filename: str, var: np.ndarray, mesh: MeshParameters, re: float
+) -> None:
+    cl = extract_centerlines(var, mesh)
+    y, u_v = cl["y"], cl["u_centerline"]
+    x, v_h = cl["x"], cl["v_centerline"]
+    with open(filename, "w") as f:
+        f.write(f"# Reynolds number: {re}\n")
+        f.write(f"# Mesh: {mesh.nx}x{mesh.ny}\n")
+        f.write("# Centerline data\n")
+        f.write("# y\tu(x=0.5)\tx\tv(y=0.5)\n")
+        for i in range(max(len(y), len(x))):
+            if i < len(y):
+                f.write(f"{y[i]:.6f}\t{u_v[i]:.6f}\t")
+            else:
+                f.write("\t\t")
+            if i < len(x):
+                f.write(f"{x[i]:.6f}\t{v_h[i]:.6f}")
+            f.write("\n")
+

@@ -1,0 +1,146 @@
+"""Build and load the hand-written CUDA kernels (`csrc/*.cu`).
+
+One `nvcc` call compiles every source into `_build/libsrcfd_kernels.so`, a
+shared library with a plain C interface, which is loaded with `ctypes`.
+The build runs at first use, takes seconds, and is skipped while the
+library is newer than every source. Nothing here runs at import time, so
+the package imports on machines without CUDA.
+
+Each C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `check` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+LIB_PATH = BUILD_DIR / "libsrcfd_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: every pointer (and the stream) as c_void_p
+SIGNATURES = {
+    "srcfd_rb_partials": (_I, [_I, _I]),
+    "srcfd_rb_small_max_cells": (_I, []),
+    "srcfd_rb_half_sweep": (_I, [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I,
+                                 _I, _P]),
+    "srcfd_rms_finalize": (_I, [_P, _I, _F, _P, _P]),
+    "srcfd_rb_sor_loop_small": (_I, [_P, _P, _I, _I, _F, _F, _F, _F, _F,
+                                     _F, _F, _I, _I, _F, _I, _I, _P, _P,
+                                     _P]),
+    "srcfd_mg_partials": (_I, [_I, _I]),
+    "srcfd_mg_smooth_half": (_I, [_P, _P, _I, _I, _F, _F, _F, _F, _I, _P]),
+    "srcfd_mg_residual": (_I, [_P, _P, _P, _P, _I, _I, _F, _F, _F, _P]),
+    "srcfd_mg_row_transfer": (_I, [_P, _P, _I, _I, _I, _I, _P, _P, _P, _F,
+                                   _I, _P]),
+    "srcfd_mg_col_transfer": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _F, _I,
+                                   _P]),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []) + [
+            "/usr/local/cuda/bin/nvcc"]:
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME); the CUDA kernels are built "
+            "from source at first use")
+    return found
+
+
+def sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _up_to_date() -> bool:
+    if not LIB_PATH.exists():
+        return False
+    newest = max(p.stat().st_mtime for p in CSRC_DIR.iterdir())
+    return LIB_PATH.stat().st_mtime > newest
+
+
+def build(force: bool = False, verbose: bool = False) -> float:
+    """Compile `csrc/*.cu` into the shared library unless it is up to date.
+    Returns the seconds spent. `verbose` adds `-Xptxas -v` and prints the
+    compiler's report (registers, shared memory, spills per kernel)."""
+    if not force and _up_to_date():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"libsrcfd_kernels.{os.getpid()}.tmp.so"
+    cmd = [nvcc_path(), *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, LIB_PATH)  # atomic: a concurrent build never sees half a file
+    return time.perf_counter() - t0
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built if needed, with argtypes set."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(str(LIB_PATH))
+            for name, (restype, argtypes) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _lib = lib
+        return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"CUDA error {code} launching {what}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_field(p, kernel: str) -> None:
+    """Raise unless `p` is what the pressure kernels take: a contiguous
+    float32 (nx+2, ny+2) field on a CUDA device."""
+    import torch
+
+    if p.device.type != "cuda":
+        raise ValueError(f"expected a CUDA tensor, got {p.device}")
+    if p.dtype != torch.float32:
+        raise ValueError(f"the {kernel} kernel is float32-only, got {p.dtype}")
+    if p.dim() != 2 or min(p.shape) < 3:
+        raise ValueError(f"expected a padded (nx+2, ny+2) field, got {tuple(p.shape)}")
+    if not p.is_contiguous():
+        raise ValueError(f"the {kernel} kernel takes a contiguous (row-major) "
+                         f"field, got strides {p.stride()}")

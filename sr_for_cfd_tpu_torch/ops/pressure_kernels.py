@@ -1,0 +1,168 @@
+"""Red-black SOR pressure loop on the card (counterpart of `sr_for_cfd_tpu/ops/pallas_kernels.py`).
+
+`solve_pressure_kernel` is the port of `pallas_solve_pressure`: the same
+red-black SOR for volp * Laplacian(p) = rho/dt sum(Ff) with frozen ghosts,
+omega clamped to `optimal_sor`, rms every `check_every` sweeps, the unified
+stall policy, and an exit on tolerance, stall or `max_iter`. It returns
+(p, sweeps_run). The CUDA source is `csrc/rb_sor.cu`.
+
+On a CPU tensor the wrapper runs the plain PyTorch version,
+`solve_pressure_plain`: the same loop as `sweeps.solve_pressure`, with the
+TPU kernel's arithmetic (multiply by the reciprocal diagonal and by
+1/dx^2, 1/dy^2, where the jnp sweeps divide), so that near the float32
+floor, where the stall policy decides, it takes the TPU kernel's exits.
+On a CUDA tensor the wrapper launches the kernel or raises.
+`solve_pressure_kernel.launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import kernel_lib
+from .stencil import FaceFluxes
+from .sweeps import (
+    STALL_MIN_CHECKS,
+    STALL_PATIENCE,
+    STALL_RATIO,
+    STALL_RESET_RATIO,
+    checkerboard,
+    np_scalar_type,
+    optimal_sor,
+    stall_update,
+    stalled,
+)
+
+
+def _coefficients(dx, dy, volp, sor, nx, ny):
+    sor = min(sor, optimal_sor(nx, ny))
+    inv_dx2 = 1.0 / (dx * dx)
+    inv_dy2 = 1.0 / (dy * dy)
+    inv_ap = 1.0 / (-volp * (2.0 * inv_dx2 + 2.0 * inv_dy2))
+    return inv_dx2, inv_dy2, sor, inv_ap
+
+
+def solve_pressure_plain(
+    p: torch.Tensor, ff: FaceFluxes, *, dx, dy, dt, rho, volp, tol=1e-6,
+    max_iter=1000, check_every=8, sor=1.0,
+) -> Tuple[torch.Tensor, int]:
+    """The kernel's loop in plain PyTorch; returns (p, sweeps_run)."""
+    nx, ny = p.shape[0] - 2, p.shape[1] - 2
+    inv_dx2, inv_dy2, sor, inv_ap = _coefficients(dx, dy, volp, sor, nx, ny)
+    b = (rho / dt) * ff.divergence_sum()
+    red = checkerboard(nx, ny, p.device)
+
+    def half(f, mask):
+        c = f[1:-1, 1:-1]
+        fd = volp * ((f[2:, 1:-1] - 2.0 * c + f[:-2, 1:-1]) * inv_dx2
+                     + (f[1:-1, 2:] - 2.0 * c + f[1:-1, :-2]) * inv_dy2)
+        r = b - fd
+        f = f.clone()
+        f[1:-1, 1:-1] = c + torch.where(mask, sor * r * inv_ap, 0.0)
+        return f, r
+
+    t = np_scalar_type(p.dtype)
+    rms = best = t(np.inf)
+    tol_t = t(tol)
+    stale = checks = it = 0
+    while it < max_iter and rms >= tol_t and not stalled(stale, checks):
+        for s in range(check_every):
+            p, r1 = half(p, red)
+            p, r2 = half(p, ~red)
+        ss = torch.sum(torch.where(red, r1 * r1, 0.0)
+                       + torch.where(red, 0.0, r2 * r2))
+        now = t(torch.sqrt(ss / (nx * ny)).item())
+        stale, best = stall_update(now, rms, best, stale)
+        rms = now
+        checks += 1
+        it += check_every
+    return p, it
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def solve_pressure_kernel(
+    p: torch.Tensor,
+    ff: FaceFluxes,
+    *,
+    dx: float,
+    dy: float,
+    dt: float,
+    rho: float,
+    volp: float,
+    tol: float = 1e-6,
+    max_iter: int = 1000,
+    check_every: int = 8,
+    sor: float = 1.0,
+) -> Tuple[torch.Tensor, int]:
+    """Red-black SOR pressure solve; returns (p, sweeps_run)."""
+    if check_every < 1:
+        raise ValueError("check_every must be >= 1")
+    if p.device.type == "cpu":
+        return solve_pressure_plain(
+            p, ff, dx=dx, dy=dy, dt=dt, rho=rho, volp=volp, tol=tol,
+            max_iter=max_iter, check_every=check_every, sor=sor)
+    kernel_lib.check_field(p, "pressure")
+    nx2, ny2 = p.shape
+    inv_dx2, inv_dy2, sor, inv_ap = _coefficients(dx, dy, volp, sor,
+                                                  nx2 - 2, ny2 - 2)
+    b = torch.zeros_like(p)
+    b[1:-1, 1:-1] = (rho / dt) * ff.divergence_sum()
+    out = p.clone(memory_format=torch.contiguous_format)
+    lib = kernel_lib.load_library()
+    stream = kernel_lib.stream_ptr(p.device)
+    coef = (inv_dx2, inv_dy2, volp, sor, inv_ap)
+
+    if nx2 * ny2 <= lib.srcfd_rb_small_max_cells():
+        # one block runs the whole loop, stall policy included
+        count = torch.empty(1, dtype=torch.int32, device=p.device)
+        rms = torch.empty(1, dtype=torch.float32, device=p.device)
+        kernel_lib.check(lib.srcfd_rb_sor_loop_small(
+            _ptr(out), _ptr(b), nx2, ny2, *coef, STALL_RESET_RATIO,
+            STALL_RATIO, STALL_PATIENCE, STALL_MIN_CHECKS,
+            float(np.float32(tol)), int(max_iter), int(check_every),
+            _ptr(count), _ptr(rms), stream),
+            "rb_sor_loop_small")
+        solve_pressure_kernel.launches += 1
+        return out, int(count.item())
+
+    n_part = lib.srcfd_rb_partials(nx2, ny2)
+    partials = torch.empty(2 * n_part, dtype=torch.float32, device=p.device)
+    rms_dev = torch.empty(1, dtype=torch.float32, device=p.device)
+    red_part = _ptr(partials)
+    black_part = red_part + n_part * partials.element_size()
+    n_cells = float((nx2 - 2) * (ny2 - 2))
+
+    def half(color: int, part: int, with_rms: int) -> None:
+        kernel_lib.check(lib.srcfd_rb_half_sweep(
+            _ptr(out), _ptr(b), part, nx2, ny2, *coef, color, with_rms,
+            stream), "rb_half_sweep")
+        solve_pressure_kernel.launches += 1
+
+    t = np.float32
+    rms = best = t(np.inf)
+    tol32 = t(tol)
+    stale = checks = it = 0
+    while it < max_iter and rms >= tol32 and not stalled(stale, checks):
+        for s in range(check_every):
+            last = int(s == check_every - 1)
+            half(0, red_part, last)
+            half(1, black_part, last)
+        kernel_lib.check(lib.srcfd_rms_finalize(
+            red_part, 2 * n_part, n_cells, _ptr(rms_dev), stream),
+            "rms_finalize")
+        solve_pressure_kernel.launches += 1
+        now = t(rms_dev.item())
+        stale, best = stall_update(now, rms, best, stale)
+        rms = now
+        checks += 1
+        it += check_every
+    return out, it
+
+
+solve_pressure_kernel.launches = 0

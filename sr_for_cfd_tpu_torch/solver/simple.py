@@ -1,0 +1,348 @@
+"""SIMPLE outer iteration, host loop and solver facade (counterpart of `sr_for_cfd_tpu/solver/simple.py`).
+
+`simple_step` is the JAX package's non-fused step: momentum u, v (inner
+sweeps) -> under-relax -> BCs -> face fluxes -> pressure -> under-relax ->
+BC -> projection (+ residuals) -> u, v BCs -> Rhie-Chow -> RMS check.
+With `use_pallas` the pressure solve runs on the hand-written CUDA kernels
+(`ops/pressure_kernels.py` for 'sweeps', `ops/mg_kernels.py` for
+'multigrid'); momentum, fluxes, BCs and projection are plain PyTorch, as
+they are `jnp` outside any Pallas kernel in the JAX package.
+
+The JAX package runs chunks of outer steps inside one `lax.while_loop`.
+Here the host runs each step and reads its three residuals; `run_chunk`
+applies the same detectors in the same order (sustained hold, field
+Cauchy, plateau window), with numpy scalars of the working dtype, so the
+exit decisions and iteration counts are the JAX package's. `CFDSolver.solve`
+adds the per-chunk host checks (history, divergence, host plateau).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import (
+    BFSGeometry,
+    BoundaryConditions,
+    CaseConfig,
+    FluidProperties,
+    MeshParameters,
+    SolverSettings,
+)
+from ..ops.bc import BFSInletProfile, apply_bc, apply_bfs_inlet
+from ..ops.stencil import (
+    face_fluxes,
+    project_velocity,
+    residual_sumsq,
+    rhie_chow_update,
+    under_relax,
+)
+from ..ops.sweeps import solve_momentum, solve_pressure
+from ..utils.device import resolve_device
+from .state import SolverState, init_state, inlet_profile, torch_dtype, warm_start_state
+
+
+def _pressure(p, ff, case: CaseConfig) -> Tuple[torch.Tensor, int]:
+    mesh, fluid, st = case.mesh, case.fluid, case.settings
+    kw = dict(dx=mesh.dx, dy=mesh.dy, dt=st.dt, rho=fluid.rho, volp=mesh.volp,
+              tol=st.inner_tolerance)
+    if st.pressure_solver == "multigrid":
+        mg_kw = dict(n_pre=st.mg_n_pre, n_post=st.mg_n_post,
+                     smoother_sor=st.mg_smoother_sor, min_size=st.mg_min_size,
+                     coarsest_sweeps=st.mg_coarsest_sweeps)
+        if st.use_pallas:
+            from ..ops.mg_kernels import mg_solve_pressure_kernel
+
+            return mg_solve_pressure_kernel(p, ff, **kw, **mg_kw)
+        from ..ops.multigrid import mg_solve_pressure
+
+        return mg_solve_pressure(p, ff, **kw, **mg_kw)
+    if st.use_pallas:  # config guarantees f32 + 'sweeps'
+        from ..ops.pressure_kernels import solve_pressure_kernel
+
+        return solve_pressure_kernel(
+            p, ff, **kw, max_iter=st.inner_max_iter,
+            check_every=st.pressure_check_every, sor=st.pressure_sor)
+    return solve_pressure(
+        p, ff, **kw, max_iter=st.inner_max_iter, inner_scheme=st.inner_scheme,
+        check_every=st.pressure_check_every, sor=st.pressure_sor)
+
+
+def simple_step(
+    state: SolverState,
+    case: CaseConfig,
+    profile: Optional[BFSInletProfile],
+    nu=None,
+    with_counts: bool = False,
+):
+    """One SIMPLE outer iteration. `nu` overrides the viscosity (a 0-d
+    tensor of the working dtype, so `nu * x` rounds as in the JAX step).
+    With `with_counts`, also returns {'u', 'v', 'p'} inner sweep (or
+    V-cycle) counts."""
+    mesh, fluid, st = case.mesh, case.fluid, case.settings
+    if nu is None:
+        nu = torch.tensor(fluid.nu, dtype=state.u.dtype, device=state.u.device)
+    dx, dy, volp, dt = mesh.dx, mesh.dy, mesh.volp, st.dt
+    sweep_kw = dict(
+        scheme=st.scheme, dx=dx, dy=dy, dt=dt, nu=nu, volp=volp,
+        tol=st.inner_tolerance, max_iter=st.inner_max_iter,
+        inner_scheme=st.inner_scheme, check_every=st.momentum_check_every,
+    )
+    counts = {}
+
+    u, counts["u"] = solve_momentum(state.u, state.u_old, state.ff, **sweep_kw)
+    u = under_relax(u, state.u_old, st.relax("u"))
+    u = apply_bfs_inlet(apply_bc(u, case.u_bc), 0, profile)
+
+    v, counts["v"] = solve_momentum(state.v, state.v_old, state.ff, **sweep_kw)
+    v = under_relax(v, state.v_old, st.relax("v"))
+    v = apply_bfs_inlet(apply_bc(v, case.v_bc), 1, profile)
+
+    ff = face_fluxes(u, v, dx, dy)
+    p, counts["p"] = _pressure(state.p, ff, case)
+    p = under_relax(p, state.p_old, st.relax("p"))
+    p = apply_bc(p, case.p_bc)
+
+    u, v = project_velocity(u, v, p, dt, fluid.rho, dx, dy)
+    res = torch.stack([
+        residual_sumsq(u, state.u_old),
+        residual_sumsq(v, state.v_old),
+        residual_sumsq(p, state.p_old),
+    ])
+    u = apply_bfs_inlet(apply_bc(u, case.u_bc), 0, profile)
+    v = apply_bfs_inlet(apply_bc(v, case.v_bc), 1, profile)
+    ff = rhie_chow_update(ff, p, dt, fluid.rho, dx, dy)
+
+    rms = (torch.sqrt(res / (mesh.nx * mesh.ny)) / dt).cpu().numpy()
+    crit = np.asarray([st.criterion("u"), st.criterion("v"),
+                       st.criterion("p")], dtype=rms.dtype)
+    new_state = state.replace(
+        u=u, v=v, p=p,
+        u_old=u[1:-1, 1:-1], v_old=v[1:-1, 1:-1], p_old=p[1:-1, 1:-1],
+        ff=ff, rms=rms, count=state.count + 1,
+        converged=bool(np.all(rms <= crit)),
+        diverged=not bool(np.all(np.isfinite(rms))),
+    )
+    if with_counts:
+        return new_state, counts
+    return new_state
+
+
+def _active(state: SolverState, max_iterations: int) -> bool:
+    return (not state.converged and not state.diverged
+            and state.count < max_iterations)
+
+
+def apply_detectors(s: SolverState, st: SolverSettings) -> SolverState:
+    """The device-side detectors of the JAX chunk loop, in its order:
+    sustained hold, field-Cauchy drift, plateau window."""
+    if st.convergence_hold > 1:
+        held = s.held + 1 if s.converged else 0
+        s = s.replace(converged=held >= st.convergence_hold, held=held)
+    if st.cauchy_tol > 0.0:
+        at_check = s.count % st.cauchy_check_every == 0
+        full = (s.count - s.cau_count) >= st.cauchy_check_every
+        steady = False
+        if at_check and full:
+            du = torch.max(torch.abs(s.u - s.cau_u_ref))
+            dv = torch.max(torch.abs(s.v - s.cau_v_ref))
+            steady = bool((du < st.cauchy_tol) & (dv < st.cauchy_tol))
+        if at_check:
+            s = s.replace(cau_u_ref=s.u, cau_v_ref=s.v, cau_count=s.count)
+        s = s.replace(converged=s.converged or steady)
+    if st.plateau_patience > 0:
+        t = s.rms.dtype.type
+        acc = s.plat_acc + s.rms
+        wn = s.plat_n + 1
+        at_check = s.count % st.plateau_check_every == 0
+        mean = acc / t(max(wn, 1))
+        improved = bool(np.any(mean < t(1.0 - st.plateau_rtol) * s.plat_best))
+        stale = ((0 if improved else s.plat_stale + 1) if at_check
+                 else s.plat_stale)
+        s = s.replace(
+            plat_best=np.minimum(s.plat_best, mean) if at_check else s.plat_best,
+            plat_acc=np.zeros_like(acc) if at_check else acc,
+            plat_n=0 if at_check else wn,
+            plat_stale=stale,
+            converged=s.converged or stale >= st.plateau_patience,
+        )
+    return s
+
+
+def run_chunk(state: SolverState, profile: Optional[BFSInletProfile],
+              case: CaseConfig, n_steps: int, nu=None) -> SolverState:
+    """Up to `n_steps` outer iterations; stops early on convergence,
+    divergence or max_iterations."""
+    st = case.settings
+    for _ in range(n_steps):
+        if not _active(state, st.max_iterations):
+            break
+        state = simple_step(state, case, profile, nu=nu)
+        state = apply_detectors(state, st)
+    return state
+
+
+class ResidualHistory:
+    """Residual trace sampled once per chunk."""
+
+    def __init__(self):
+        self.data: Dict[str, list] = {"u": [], "v": [], "p": []}
+        self.iterations: list = []
+
+    def append(self, count: int, rms: np.ndarray):
+        self.iterations.append(count)
+        for k, val in zip(("u", "v", "p"), rms):
+            self.data[k].append(float(val))
+
+
+class DivergenceError(ValueError):
+    """Raised when residuals go NaN/Inf."""
+
+
+class CFDSolver:
+    """User-facing solver with the reference's `CFDSolver` surface:
+    construct from mesh / fluid / settings / BCs, call `.solve()`, read
+    `.Var` or `.interior_fields()`. `device` defaults to "cuda"; a CUDA
+    device that is not there raises."""
+
+    def __init__(
+        self,
+        mesh: MeshParameters,
+        fluid: FluidProperties,
+        solver_settings: SolverSettings,
+        bc: BoundaryConditions,
+        bfs: Optional[BFSGeometry] = None,
+        case_name: str = "lid driven cavity",
+        bc_label: str = "lid_driven_cavity",
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.case = CaseConfig.build(
+            mesh, fluid, solver_settings, bc, bfs=bfs,
+            case_name=case_name, bc_label=bc_label,
+        )
+        self.profile = inlet_profile(self.case, self.device)
+        self.state = init_state(self.case, self.device)
+        self.residual_history = ResidualHistory()
+        self._nu = torch.tensor(self.case.fluid.nu,
+                                dtype=torch_dtype(self.case), device=self.device)
+
+    def precompile(self) -> float:
+        """Build the CUDA kernels this case uses (at first use in the
+        process) so that the build stays out of the timed solve; returns
+        the seconds spent."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda" and self.settings.use_pallas:
+            from ..ops.kernel_lib import load_library
+
+            load_library()
+        return time.perf_counter() - t0
+
+    @property
+    def mesh(self) -> MeshParameters:
+        return self.case.mesh
+
+    @property
+    def fluid(self) -> FluidProperties:
+        return self.case.fluid
+
+    @property
+    def settings(self) -> SolverSettings:
+        return self.case.settings
+
+    @property
+    def Var(self) -> np.ndarray:
+        return self.state.var()
+
+    def interior_fields(self) -> Dict[str, np.ndarray]:
+        return self.state.interior_fields()
+
+    def warm_start(self, fields: Dict[str, np.ndarray], count: int = 0) -> None:
+        """Initialise from (ny, nx) interior fields; `count` restores the
+        iteration counter."""
+        self.state = warm_start_state(self.case, fields, self.device)
+        if count:
+            self.state = self.state.replace(count=int(count))
+
+    def solve(
+        self,
+        output_base_name: str = "output",
+        verbose: bool = True,
+        log_convergence: bool = False,
+        save_results: bool = True,
+    ) -> Tuple[int, float]:
+        """Run to convergence or max_iterations; returns (iterations,
+        elapsed_seconds). The host checks run once per `chunk_size`
+        iterations, as in the JAX package."""
+        st = self.case.settings
+        start = time.time()
+        log_file = None
+        if log_convergence:
+            log_file = open(f"{output_base_name}_convergence.log", "w")
+            log_file.write("# Convergence History\n")
+            log_file.write(f"# Reynolds number: {self.case.fluid.Re}\n")
+            log_file.write(f"# Mesh: {self.mesh.nx}x{self.mesh.ny}\n")
+            log_file.write(f"# Time step: {st.dt}\n")
+            log_file.write(f"# Scheme: {st.scheme}\n")
+            log_file.write("# Iteration\tU_RMS\t\tV_RMS\t\tP_RMS\t\tTime(s)\n")
+        if verbose:
+            print(f"Starting simulation with Re={self.case.fluid.Re}, "
+                  f"mesh={self.mesh.nx}x{self.mesh.ny}")
+            print(f"Time step: {st.dt}, Scheme: {st.scheme}")
+            print("\nIteration\tU-RMS\t\tV-RMS\t\tP-RMS")
+            print("-" * 60)
+
+        rms_window: list = []
+        try:
+            # each chunk runs >= 1 step unless the state is inactive, and an
+            # inactive state ends the loop below, so max_iterations + 1
+            # passes bound it
+            for _ in range(st.max_iterations + 1):
+                self.state = run_chunk(self.state, self.profile, self.case,
+                                       st.chunk_size, nu=self._nu)
+                count = self.state.count
+                rms = self.state.rms
+                self.residual_history.append(count, rms)
+                if verbose:
+                    print(f"{count}\t{rms[0]:.6e}\t{rms[1]:.6e}\t{rms[2]:.6e}")
+                if log_file:
+                    log_file.write(
+                        f"{count}\t{rms[0]:.6e}\t{rms[1]:.6e}\t{rms[2]:.6e}"
+                        f"\t{time.time() - start:.3f}\n")
+                    log_file.flush()
+                if self.state.diverged:
+                    raise DivergenceError(
+                        f"Solution diverged at iteration {count}: "
+                        f"RMS = {rms.tolist()} (NaN/Inf detected). "
+                        f"Try a smaller dt or stronger under-relaxation.")
+                if self.state.converged or count >= st.max_iterations:
+                    break
+                if st.plateau_patience > 0:
+                    rms_window.append(rms)
+                    n = st.plateau_patience
+                    if len(rms_window) >= 2 * n:
+                        recent = np.median(rms_window[-n:], axis=0)
+                        prior = np.median(rms_window[-2 * n:-n], axis=0)
+                        if np.all(recent >= (1.0 - st.plateau_rtol) * prior):
+                            if verbose:
+                                print(f"Stopping at iteration {count}: "
+                                      "residuals plateaued")
+                            break
+                        rms_window = rms_window[-2 * n:]
+        finally:
+            if log_file:
+                log_file.close()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        elapsed = time.time() - start
+        if verbose:
+            print(f"\nSimulation completed in {elapsed:.2f} seconds")
+            print(f"Total iterations: {self.state.count}")
+        if save_results:
+            from ..io.results import save_all_results
+
+            save_all_results(self, output_base_name)
+        return self.state.count, elapsed

@@ -1,0 +1,114 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test skips without a CUDA card. This file imports no JAX, so it
+runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Float32 on both sides; they round differently (reciprocal multiply vs
+divide, fused multiply-adds, summation order), ~1e-7 relative per
+operation, and the iterations are contractive: 2e-5 of the largest value.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sr_for_cfd_tpu_torch.ops.mg_kernels import mg_solve_pressure_kernel
+from sr_for_cfd_tpu_torch.ops.multigrid import mg_solve_pressure
+from sr_for_cfd_tpu_torch.ops.pressure_kernels import (
+    solve_pressure_kernel,
+    solve_pressure_plain,
+)
+from sr_for_cfd_tpu_torch.ops.stencil import face_fluxes
+
+REL_TOL = 2e-5
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _problem(seed, nx, ny, lx, ly, device):
+    rng = np.random.default_rng(seed)
+
+    def field(scale):
+        return torch.tensor(rng.standard_normal((nx + 2, ny + 2)) * scale,
+                            dtype=torch.float32, device=device)
+
+    u, v, p = field(0.1), field(0.1), field(0.01)
+    dx, dy = lx / nx, ly / ny
+    return p, face_fluxes(u, v, dx, dy), dict(dx=dx, dy=dy, dt=2e-3, rho=1.0,
+                                               volp=dx * dy)
+
+
+def _close(out, ref):
+    torch.cuda.synchronize()
+    tol = REL_TOL * max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [10, 60, 400])
+def test_rb_sor_kernel_matches_plain(card, n):
+    """Single-block loop (12x12, 62x62) and per-half-sweep launches
+    (402x402); 64 sweeps, no early exit."""
+    p, ff, geo = _problem(n, n, n, 10.0, 3.0, card)
+    kw = dict(geo, tol=0.0, max_iter=64, check_every=8, sor=1.0)
+    out, n_out = solve_pressure_kernel(p, ff, **kw)
+    ref, n_ref = solve_pressure_plain(p, ff, **kw)
+    _close(out, ref)
+    assert n_out == n_ref == 64
+    assert torch.equal(out[0], p[0]) and torch.equal(out[:, -1], p[:, -1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,lx,ly", [(400, 400, 10.0, 3.0), (40, 12, 10.0, 3.0),
+                                         (33, 47, 1.0, 1.0)])
+def test_mg_kernel_matches_plain(card, nx, ny, lx, ly):
+    """The hybrid's fine grid, an anisotropic semi-coarsened grid and odd
+    sizes (banded row transfers); 3 cycles, no early exit."""
+    p, ff, geo = _problem(nx + ny, nx, ny, lx, ly, card)
+    kw = dict(geo, tol=1e-30, max_cycles=3)
+    out, n_out = mg_solve_pressure_kernel(p, ff, **kw)
+    ref, n_ref = mg_solve_pressure(p, ff, **kw)
+    _close(out, ref)
+    assert n_out == n_ref == 3
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    p = torch.zeros((12, 12), dtype=torch.float64, device=card)
+    ff = face_fluxes(p, p, 0.1, 0.1)
+    kw = dict(dx=0.1, dy=0.1, dt=1e-3, rho=1.0, volp=0.01)
+    with pytest.raises(ValueError, match="float32"):
+        solve_pressure_kernel(p, ff, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        mg_solve_pressure_kernel(p, ff, **kw)
+    # dense but transposed: the kernels read row-major fields
+    pt = torch.zeros((14, 12), dtype=torch.float32, device=card).T
+    fft = face_fluxes(pt.contiguous(), pt.contiguous(), 0.1, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        solve_pressure_kernel(pt, fft, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        mg_solve_pressure_kernel(pt, fft, **kw)
+
+
+@pytest.mark.cuda
+def test_kernel_step_matches_plain_step(card):
+    """Ten BFS steps on the card through the kernels against the plain
+    PyTorch path on the CPU, float32."""
+    from sr_for_cfd_tpu_torch.solver.cases import make_bfs_solver
+
+    kw = dict(nx=40, ny=40, dtype="float32", use_pallas=True,
+              pressure_solver="multigrid", max_iterations=10, chunk_size=10)
+    gpu = make_bfs_solver(device=card, **kw)
+    cpu = make_bfs_solver(device="cpu", **kw)
+    assert gpu.solve(verbose=False, save_results=False)[0] == 10
+    assert cpu.solve(verbose=False, save_results=False)[0] == 10
+    a, b = gpu.interior_fields(), cpu.interior_fields()
+    for c in "uvp":
+        scale = max(1.0, float(np.abs(b[c]).max()))
+        np.testing.assert_allclose(a[c], b[c], rtol=0, atol=1e-4 * scale)
