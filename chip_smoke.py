@@ -7,22 +7,34 @@ Phases, each ending in `torch.cuda.synchronize()` so that a fault shows
 where it happened; any failure ends the run with a non-zero exit code and
 no result line:
 
-1. build: compile `sr_for_cfd_tpu_torch/csrc/*.cu` with nvcc (ptxas report
-   printed) and load the library.
+1. build: compile `sr_for_cfd_tpu_torch/csrc/*.cu` with one nvcc call
+   (ptxas report printed) and load the library.
 2. kernels: each CUDA kernel against its plain PyTorch version on the same
    seeded inputs on the card: the red-black SOR pressure loop at 12x12 (the
    hybrid's coarse grid) and 402x402 (max_iter 64), the V-cycle loop at
-   400x400 with the BFS spacing (3 cycles). Max abs difference, counts,
-   kernel and plain times (CUDA events, after a warm-up).
-3. main path: `run_hybrid_experiment` for the BFS Re=400 hybrid at full
-   width: 10x10 coarse solve (red-black SOR kernel), the shipped 10->400
-   autoencoder, warm and cold 400x400 fine solves (V-cycle kernel), with
-   iteration budgets of 2000 / 100 / 100. Kernel launch counters are set to
-   0 just before and read just after; each kernel must have launched in
-   its phase.
-4. reference: the same hybrid configuration at a small size (BFS 10x10
-   coarse, bicubic SR, 32x32 fine) on the card and with the plain PyTorch
-   path on the CPU; the fine fields must agree.
+   400x400 with the BFS spacing (3 cycles), and the whole-step kernel in
+   five gates: design (a) on the BFS 10x10 coarse settings (K=500) and a
+   16x16 QUICK cavity (K=4), design (b) forced on a 64x64 QUICK cavity,
+   at 400x400 BFS in multigrid mode (K=10) and in point-iteration mode
+   (K=1, omega 1.0). Max abs difference against the stated tolerance,
+   counts, kernel and plain times (CUDA events) and bounds.
+3. non-fused main path: `run_hybrid_experiment` for the BFS Re=400 hybrid
+   at full width with `use_pallas=True, fused_step=False` (10x10 coarse on
+   the SOR kernel, the shipped 10->400 autoencoder, warm and cold 400x400
+   fine solves on the V-cycle kernel), budgets 500 / 50 / 50.
+4. fused main path: the JAX demos' `bfs_north_star` configuration
+   (`scripts/run_demos.py:65-98, 187-208, 233-263`): fused coarse phase,
+   500 steps per launch, design (a); fused fine phases in multigrid mode,
+   10 steps per call, design (b), with RRE. Cut to budgets 2000 / 300 /
+   300, RRE every 40 steps from step 0 in chunks of 280 (one jump per fine
+   phase), plateau checks every 100 and the Cauchy check at 300.
+   In 3 and 4 the launch counters are set to 0 just before and read just
+   after; each kernel of the path must have launched in its phases, and
+   each fine phase of 4 must have attempted an RRE jump.
+5. references: the non-fused configuration of 3 and the fused one of 4 (with
+   design (b) forced everywhere) at a small size (BFS 10x10 coarse, bicubic
+   SR, 32x32 fine) on the card and with the plain PyTorch path on the CPU;
+   iteration counts must be equal and fields within 1e-4 relative.
 
 The last lines are a `{"kernels": [...]}` line, the card's name and power
 limit as nvidia-smi prints them, and `{"ok": true, "device": {...}}`.
@@ -59,12 +71,13 @@ def fail(msg):
     sys.exit(1)
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warm=True):
     """Mean ms per call of fn() over `reps` calls, CUDA events, after one
-    warm-up call."""
+    warm-up call (`warm=False`: the caller has just run it)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -139,6 +152,58 @@ def mg_work(plan, n_pre, n_post, coarsest_sweeps, cycles):
     return nbytes, flops * cycles
 
 
+# per cell of a momentum red-black sweep (fused_step.cu mom_residual and
+# the update): 31 float32 operations upwind, 55 QUICK
+FLOP_MOM_CELL = {"UPWIND": 31, "QUICK": 55}
+# per cell and step outside the inner loops: fluxes and pressure RHS 12,
+# projection 8, residual sums 9, Rhie-Chow 20; relaxation 3 per field
+FLOP_STEP_CELL = 49
+FLOP_RELAX_CELL = 3
+
+
+def fused_work(case, counts, device):
+    """(bytes, flops) of one call of the whole-step kernel with this run's
+    inner counts (summed over its steps): the padded u, v, p and the four
+    interior flux arrays read once and written once, float32; every sweep
+    or V-cycle the counts report, and the per-step work."""
+    from sr_for_cfd_tpu_torch.ops.mg_kernels import plan_hierarchy
+
+    mesh, st = case.mesh, case.settings
+    nx, ny = mesh.nx, mesh.ny
+    cells = nx * ny
+    k = st.steps_per_kernel
+    nbytes = 2 * 4 * (3 * (nx + 2) * (ny + 2) + 4 * cells)
+    mom_checks = (counts[0] + counts[1]) // max(1, st.momentum_check_every)
+    flops = cells * (FLOP_MOM_CELL[st.scheme] * (counts[0] + counts[1])
+                     + FLOP_SUMSQ_CELL * mom_checks)
+    relaxed = sum(st.relax(c) != 1.0 for c in "uvp")
+    flops += cells * k * (FLOP_STEP_CELL + FLOP_RELAX_CELL * relaxed)
+    if st.pressure_solver == "multigrid":
+        plan = plan_hierarchy(nx, ny, mesh.dx, mesh.dy, mesh.volp, st.mg_min_size,
+                              str(device))
+        flops += mg_work(plan, st.mg_n_pre, st.mg_n_post, st.mg_coarsest_sweeps,
+                         counts[2])[1]
+    else:
+        flops += rb_sor_work(nx, ny, counts[2], max(1, st.pressure_check_every))[1]
+    return nbytes, flops
+
+
+def smooth_fields(seed, nx, ny, scale=0.1):
+    """(ny, nx) fields u, v, p: an 8x8 numpy-seeded normal field, bicubic
+    upsampled, so that every grid size gets a smooth state."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for c in "uvp":
+        coarse = torch.tensor(rng.standard_normal((1, 1, 8, 8)) * scale)
+        out[c] = F.interpolate(coarse, size=(ny, nx), mode="bicubic",
+                               align_corners=True)[0, 0].numpy()
+    return out
+
+
 def seeded_problem(rng, nx, ny, lx, ly, device):
     import torch
 
@@ -154,14 +219,17 @@ def seeded_problem(rng, nx, ny, lx, ly, device):
                                                volp=dx * dy)
 
 
-def check_pair(name, out_k, n_k, out_p, n_p):
+def check_pair(name, out_k, n_k, out_p, n_p, quiet=False):
+    """Max abs difference of kernel and plain outputs; fails beyond REL_TOL
+    of the plain output's largest |value| or on unequal counts."""
     import torch
 
     err = float(torch.max(torch.abs(out_k - out_p)).item())
     scale = float(torch.max(torch.abs(out_p)).item())
     ok = math.isfinite(err) and err <= REL_TOL * max(1.0, scale) and n_k == n_p
-    log(f"  {name}: max_abs_err={err:.3e} (tol {REL_TOL:g} x {max(1.0, scale):.3e}) "
-        f"count kernel={n_k} plain={n_p}")
+    if not quiet or not ok:
+        log(f"  {name}: max_abs_err={err:.3e} (tol {REL_TOL:g} x {max(1.0, scale):.3e}) "
+            f"count kernel={n_k} plain={n_p}")
     if not ok:
         fail(f"{name}: kernel and plain version disagree")
     return err
@@ -220,6 +288,82 @@ def phase_kernels(device):
     return results
 
 
+# (label, design, case, solver keywords); the inner tolerances are ones
+# the loops reach before the float32 floor, where the stall policy's exits
+# are chaotic, so that the counts of kernel and plain version can be held
+# equal: 1e-3 except on the 16x16 cavity (1e-6, the default)
+FUSED_GATES = [
+    ("a BFS 10x10 coarse K=500", "a", "bfs",
+     dict(nx=10, ny=10, scheme="UPWIND", pressure_solver="sweeps",
+          pressure_sor=1.5, inner_max_iter=64, inner_tolerance=1e-3,
+          steps_per_kernel=500)),
+    ("a cavity 16x16 QUICK K=4", "a", "cavity",
+     dict(Re=100, nx=16, ny=16, dt=2e-3, scheme="QUICK", steps_per_kernel=4)),
+    ("b cavity 64x64 QUICK K=2", "b", "cavity",
+     dict(Re=100, nx=64, ny=64, dt=2e-3, scheme="QUICK", inner_tolerance=1e-3,
+          steps_per_kernel=2)),
+    ("b BFS 400x400 multigrid K=10", "b", "bfs",
+     dict(nx=400, ny=400, pressure_solver="multigrid", inner_tolerance=1e-3,
+          steps_per_kernel=10)),
+    ("b BFS 400x400 sweeps K=1", "b", "bfs",
+     dict(nx=400, ny=400, pressure_solver="sweeps", pressure_sor=1.0,
+          inner_tolerance=1e-3, steps_per_kernel=1)),
+]
+
+
+def phase_fused(device):
+    """The whole-step kernel against its plain version on the same seeded
+    state: fields within REL_TOL of the largest |value|, equal counts."""
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops.step_kernels import (
+        simple_step_kernel,
+        simple_step_plain,
+    )
+    from sr_for_cfd_tpu_torch.solver.cases import make_bfs_solver, make_cavity_solver
+
+    results = []
+    for seed, (label, design, case, kw) in enumerate(FUSED_GATES):
+        make = make_bfs_solver if case == "bfs" else make_cavity_solver
+        solver = make(device=device, dtype="float32", fused_step=True,
+                      chunk_size=kw["steps_per_kernel"], **kw)
+        solver.warm_start(smooth_fields(seed, solver.mesh.nx, solver.mesh.ny))
+        s, c, prof, nu = solver.state, solver.case, solver.profile, solver._nu
+
+        def kernel():
+            return simple_step_kernel(s.u, s.v, s.p, s.ff, c, prof, nu=nu,
+                                      _design=design)
+
+        def plain():
+            return simple_step_plain(s.u, s.v, s.p, s.ff, c, prof, nu=nu)
+
+        out_k, out_p = kernel(), plain()
+        torch.cuda.synchronize()
+        fields = []  # (err / tol, err, tol) per field and flux array
+        for a, b in zip((*out_k[:3], *out_k[3]), (*out_p[:3], *out_p[3])):
+            e = check_pair(f"fused_step {label}", a, out_k[5], b, out_p[5], quiet=True)
+            tol = REL_TOL * max(1.0, float(torch.max(torch.abs(b)).item()))
+            fields.append((e / tol, e, tol))
+        worst = max(fields, key=lambda f: f[0])
+        err = max(f[1] for f in fields)
+        log(f"  fused_step {label}: max_abs_err={err:.3e}; worst field {worst[1]:.3e} "
+            f"against its tolerance {worst[2]:.3e} (REL_TOL x max|value|); "
+            f"counts kernel={out_k[5]} plain={out_p[5]} (equal)")
+        k = kw["steps_per_kernel"]
+        reps = 5 if design == "a" or kw["nx"] < 100 else 2
+        ms = cuda_ms(kernel, reps)
+        plain_ms = cuda_ms(plain, 1, warm=False)
+        nb, fl = fused_work(c, out_k[5], device)
+        b_ms, b_by = bound_ms(nb, fl)
+        log(f"  fused_step {label}: kernel {ms:.4f} ms per call ({ms / k:.5f} per step), "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms per call "
+            f"({b_ms / k:.3e} per step, {b_by})")
+        results.append(dict(gate=label, design=design, steps=k, counts=out_k[5],
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by))
+    return results
+
+
 def finite_fields(solver):
     import torch
 
@@ -227,58 +371,89 @@ def finite_fields(solver):
     return all(bool(torch.isfinite(t).all().item()) for t in (s.u, s.v, s.p))
 
 
-def _main_path(run_hybrid_experiment, out_dir, device):
-    """The BFS Re=400 hybrid as a user runs it; launch counters set to 0
-    just before."""
+def reset_counters():
+    from sr_for_cfd_tpu_torch.ops.extrapolate import rre_extrapolate
     from sr_for_cfd_tpu_torch.ops.mg_kernels import mg_solve_pressure_kernel
     from sr_for_cfd_tpu_torch.ops.pressure_kernels import solve_pressure_kernel
+    from sr_for_cfd_tpu_torch.ops.step_kernels import simple_step_kernel
 
-    solve_pressure_kernel.launches = 0
-    mg_solve_pressure_kernel.launches = 0
-    return run_hybrid_experiment(
-        Re=400, lr_dim=10, hr_dim=400, dt=2e-3, scheme="UPWIND", case="bfs",
-        max_iterations_coarse=2000, max_iterations_ml=100,
-        max_iterations_normal=100, model_file=MODEL_FILE,
-        stats_file=STATS_FILE, output_dir=out_dir,
-        verbose=False, save_results=False, dtype="float32",
-        use_pallas=True, pressure_solver="multigrid", fused_step=False,
-        coarse_overrides={"pressure_solver": "sweeps", "use_pallas": True,
-                          "fused_step": False},
-        device=device,
-    )
+    for fn in (solve_pressure_kernel, mg_solve_pressure_kernel, simple_step_kernel):
+        fn.launches = 0
+    rre_extrapolate.attempts = rre_extrapolate.taken = 0
 
 
-def phase_main_path(device):
+# the JAX demos' bfs_north_star arguments (scripts/run_demos.py:233-263 with
+# `fine` :187-192 and BFS_FINE_RRE :208); cut: budgets, RRE cadence and
+# chunk, detector cadences (see the module docstring)
+NORTH_STAR = dict(
+    Re=400, lr_dim=10, hr_dim=400, dt=2e-3, scheme="UPWIND", case="bfs",
+    blend_factor=0.3, use_aspect_ratio_correction=False,
+    use_adaptive_normalization=False, cauchy_tol=1.2e-2,
+    pressure_solver="multigrid", fused_step=True, plateau_patience=5,
+    steps_per_kernel=10, rre_depth=6, verbose=False, dtype="float32",
+    # cuts: one RRE cycle (7 snapshots, 40 apart) per fine phase
+    rre_every=40, rre_min_count=0, chunk_size=280,
+    cauchy_check_every=300, plateau_check_every=100,
+)
+# the demo's coarse overrides (run_demos.py:65-98 updated with :253-254)
+NORTH_STAR_COARSE = {
+    "pressure_solver": "sweeps", "fused_step": True, "pressure_sor": 1.5,
+    "chunk_size": 100000, "inner_max_iter": 64, "rre_every": 0,
+    "cauchy_tol": 0.0, "cauchy_check_every": 2000, "convergence_hold": 1,
+    "steps_per_kernel": 500,
+    # cut: the fine phases' plateau cadence of 100 is not a multiple of 500
+    "plateau_check_every": 2000,
+}
+NON_FUSED = dict(
+    Re=400, lr_dim=10, hr_dim=400, dt=2e-3, scheme="UPWIND", case="bfs",
+    verbose=False, dtype="float32", use_pallas=True,
+    pressure_solver="multigrid", fused_step=False,
+)
+NON_FUSED_COARSE = {"pressure_solver": "sweeps", "use_pallas": True,
+                    "fused_step": False}
+
+
+def run_path(name, device, budgets, kw, coarse):
+    """One hybrid run as a user makes it, launch counters set to 0 just
+    before and read just after; fails on non-finite fields or a wrong SR
+    shape. Returns (results, launches summed over the phases)."""
     import torch
 
-    from sr_for_cfd_tpu_torch.ops.mg_kernels import mg_solve_pressure_kernel
-    from sr_for_cfd_tpu_torch.ops.pressure_kernels import solve_pressure_kernel
     from sr_for_cfd_tpu_torch.workflow.hybrid import run_hybrid_experiment
 
     for path in (MODEL_FILE, STATS_FILE):
         if not os.path.exists(path):
             fail(f"missing {path}")
+    reset_counters()
     with tempfile.TemporaryDirectory(prefix="srcfd_") as out_dir:
-        res = _main_path(run_hybrid_experiment, out_dir, device)
+        res = run_hybrid_experiment(
+            max_iterations_coarse=budgets[0], max_iterations_ml=budgets[1],
+            max_iterations_normal=budgets[2], model_file=MODEL_FILE,
+            stats_file=STATS_FILE, output_dir=out_dir, save_results=False,
+            coarse_overrides=coarse, device=device, **kw)
     torch.cuda.synchronize()
-    totals = {"rb_sor_pressure": solve_pressure_kernel.launches,
-              "mg_vcycle_pressure": mg_solve_pressure_kernel.launches}
+    launches = res["kernel_launches"]
     for phase in ("coarse", "ml", "normal"):
         n = res[f"{phase}_iterations"]
         t = res[f"{phase}_time"]
-        log(f"  phase {phase}: {n} iterations, {t:.3f} s, "
-            f"{1e3 * t / max(n, 1):.3f} ms/iter, launches {res['kernel_launches'][phase]}")
+        log(f"  {name} phase {phase}: {n} iterations, {t:.3f} s, "
+            f"{1e3 * t / max(n, 1):.3f} ms/iter, launches {launches[phase]}")
     solvers = res["solvers"]
-    log(f"  warm (ML) final rms {solvers['ml'].state.rms.tolist()}; "
-        f"cold rms at {res['normal_iterations']} iterations "
-        f"{solvers['normal'].state.rms.tolist()}")
-    log(f"  centerline diff warm vs cold: {res['centerline_diff']}")
-    for name, s in solvers.items():
+    log(f"  {name}: warm (ML) rms {solvers['ml'].state.rms.tolist()}; cold rms "
+        f"{solvers['normal'].state.rms.tolist()}; centerline diff warm vs cold "
+        f"{res['centerline_diff']}")
+    for phase, s in solvers.items():
         if not finite_fields(s):
-            fail(f"non-finite fields after the {name} phase")
-    hr = res["hr_fields"]
-    if any(hr[c].shape != (400, 400) for c in "uvp"):
-        fail("SR output has the wrong shape")
+            fail(f"{name}: non-finite fields after the {phase} phase")
+    if any(res["hr_fields"][c].shape != (400, 400) for c in "uvp"):
+        fail(f"{name}: SR output has the wrong shape")
+    totals = {k: sum(launches[ph][k] for ph in launches) for k in launches["coarse"]}
+    return res, totals
+
+
+def phase_non_fused(device):
+    res, totals = run_path("non-fused", device, (500, 50, 50), NON_FUSED,
+                           NON_FUSED_COARSE)
     launches = res["kernel_launches"]
     if launches["coarse"]["rb_sor_pressure"] <= 0:
         fail("the SOR kernel did not launch in the coarse phase")
@@ -288,34 +463,68 @@ def phase_main_path(device):
     return totals
 
 
-def phase_reference(device):
-    """The main path's configuration at a small size on the card (kernels)
-    and on the CPU (plain PyTorch): the fine fields must agree."""
+def phase_north_star(device):
+    res, totals = run_path("north star", device, (2000, 300, 300), NORTH_STAR,
+                           NORTH_STAR_COARSE)
+    launches = res["kernel_launches"]
+    for phase in ("coarse", "ml", "normal"):
+        if launches[phase]["fused_step"] <= 0:
+            fail(f"the fused-step kernel did not launch in the {phase} phase")
+    for phase in ("ml", "normal"):
+        if launches[phase]["mg_vcycle_pressure"] <= 0:
+            fail(f"the V-cycle kernel did not launch in the {phase} phase")
+        if launches[phase]["rre_attempts"] <= 0:
+            fail(f"no RRE jump was attempted in the {phase} phase")
+    return totals
+
+
+def small_reference(name, device, kw, coarse):
+    """A hybrid configuration at a small size on the card (kernels) and on
+    the CPU (plain PyTorch): equal iteration counts, fields within 1e-4 of
+    the largest |value|."""
     import numpy as np
 
     from sr_for_cfd_tpu_torch.workflow.hybrid import run_hybrid_experiment
 
-    kw = dict(Re=400, lr_dim=10, hr_dim=32, dt=2e-3, scheme="UPWIND",
-              case="bfs", max_iterations_coarse=100, max_iterations_ml=20,
-              max_iterations_normal=20, verbose=False, save_results=False,
-              dtype="float32", use_pallas=True, pressure_solver="multigrid",
-              coarse_overrides={"pressure_solver": "sweeps",
-                                "use_pallas": True})
-    gpu = run_hybrid_experiment(device=device, **kw)
-    cpu = run_hybrid_experiment(device="cpu", **kw)
-    worst = 0.0
+    kw = dict(kw, lr_dim=10, hr_dim=32, save_results=False)
+    gpu = run_hybrid_experiment(device=device, coarse_overrides=coarse, **kw)
+    cpu = run_hybrid_experiment(device="cpu", coarse_overrides=coarse, **kw)
+    worst = {}
     for phase in ("coarse", "ml", "normal"):
         if gpu[f"{phase}_iterations"] != cpu[f"{phase}_iterations"]:
-            fail(f"reference: {phase} iteration counts differ")
+            fail(f"{name} reference: {phase} iteration counts differ")
         a = gpu["solvers"][phase].interior_fields()
         b = cpu["solvers"][phase].interior_fields()
+        worst[phase] = 0.0
         for c in "uvp":
             err = float(np.max(np.abs(a[c] - b[c])))
             scale = max(1.0, float(np.max(np.abs(b[c]))))
-            worst = max(worst, err / scale)
+            worst[phase] = max(worst[phase], err / scale)
             if not (np.all(np.isfinite(a[c])) and err <= 1e-4 * scale):
-                fail(f"reference: {phase} {c} differs by {err:.3e}")
-    log(f"  small hybrid card vs CPU: worst relative field difference {worst:.3e}")
+                fail(f"{name} reference: {phase} {c} differs by {err:.3e}")
+    log(f"  {name} small hybrid card vs CPU: iterations "
+        f"{[gpu[f'{ph}_iterations'] for ph in ('coarse', 'ml', 'normal')]}, "
+        f"worst relative field difference per phase (limit 1e-4) "
+        f"{ {ph: f'{w:.3e}' for ph, w in worst.items()} }")
+
+
+def phase_reference(device):
+    from sr_for_cfd_tpu_torch.ops.step_kernels import simple_step_kernel
+
+    budgets = dict(max_iterations_coarse=100, max_iterations_ml=20,
+                   max_iterations_normal=20)
+    non_fused = {k: v for k, v in NON_FUSED.items() if k not in ("lr_dim", "hr_dim")}
+    small_reference("non-fused", device, dict(non_fused, **budgets),
+                    NON_FUSED_COARSE)
+    fused = {k: v for k, v in NORTH_STAR.items() if k not in ("lr_dim", "hr_dim")}
+    fused.update(max_iterations_coarse=1000, max_iterations_ml=100,
+                 max_iterations_normal=100, rre_every=10, chunk_size=70,
+                 plateau_check_every=50, cauchy_check_every=100)
+    simple_step_kernel.force_design = "b"
+    try:
+        small_reference("fused, design (b)", device, fused, NORTH_STAR_COARSE)
+    finally:
+        simple_step_kernel.force_design = None
 
 
 def main():
@@ -347,30 +556,47 @@ def main():
 
     t = time.perf_counter()
     kernels = phase_kernels(device)
+    fused = phase_fused(device)
     torch.cuda.synchronize()
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
 
-    t = time.perf_counter()
-    launches = phase_main_path(device)
-    torch.cuda.synchronize()
-    log(f"phase main path: {time.perf_counter() - t:.1f} s, launches {launches}")
+    by_path = {}
+    for name, phase in (("non_fused", phase_non_fused),
+                        ("north_star", phase_north_star)):
+        t = time.perf_counter()
+        by_path[name] = phase(device)
+        torch.cuda.synchronize()
+        log(f"phase {name} main path: {time.perf_counter() - t:.1f} s, "
+            f"launches {by_path[name]}")
 
     t = time.perf_counter()
     phase_reference(device)
     torch.cuda.synchronize()
     log(f"phase reference: {time.perf_counter() - t:.1f} s")
 
+    def launches(kernel):
+        counts = {path: c[kernel] for path, c in by_path.items()}
+        return dict(launches=sum(counts.values()), launches_by_path=counts)
+
+    # the fused row's numbers are the 400x400 multigrid gate's (the fine
+    # phases' shape); every gate is under "gates"
+    fused_main = next(g for g in fused if g["gate"].startswith("b BFS 400x400 multigrid"))
     rows = [
         dict(name="rb_sor_pressure", route="cuda",
              source="sr_for_cfd_tpu_torch/csrc/rb_sor.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_kernels.py:136",
-             launches=launches["rb_sor_pressure"], library_ms=None,
-             **kernels["12x12"]),
+             library_ms=None, **launches("rb_sor_pressure"), **kernels["12x12"]),
         dict(name="mg_vcycle_pressure", route="cuda",
              source="sr_for_cfd_tpu_torch/csrc/mg_vcycle.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_mg.py:415",
-             launches=launches["mg_vcycle_pressure"], library_ms=None,
-             **kernels["400x400"]),
+             library_ms=None, **launches("mg_vcycle_pressure"), **kernels["400x400"]),
+        dict(name="fused_step", route="cuda",
+             source="sr_for_cfd_tpu_torch/csrc/fused_step.cu",
+             replaces="sr_for_cfd_tpu/ops/pallas_step.py:414",
+             library_ms=None, **launches("fused_step"),
+             **{k: fused_main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by")},
+             gates=fused),
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

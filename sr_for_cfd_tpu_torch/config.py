@@ -3,10 +3,10 @@
 PyTorch-port counterpart of `sr_for_cfd_tpu/config.py`. The dataclasses,
 presets, `SolverSettings` validation and `CaseConfig.build` keep the JAX
 package's names, defaults and semantics, so a case built here describes the
-same flow as one built there. Two things differ:
+same flow as one built there, and both refuse the same configurations
+(the TPU VMEM gate of `CaseConfig.build` included, with its message). One
+thing differs:
 
-* The TPU VMEM gate of `CaseConfig.build` is gone: it is a limit of the
-  TPU's on-chip memory, not of the CUDA kernels.
 * Settings whose kernels this port does not have yet raise
   `NotImplementedError` naming the ROADMAP item that will port them,
   instead of being silently rerouted (see `refuse_unported`).
@@ -162,7 +162,9 @@ class SolverSettings:
     `use_pallas=True` keeps its name so that the two packages take the same
     keyword arguments; here it selects the hand-written CUDA pressure
     kernels (`ops/pressure_kernels.py` for 'sweeps', `ops/mg_kernels.py`
-    for 'multigrid'). On a CPU tensor their wrappers run the plain
+    for 'multigrid'). `fused_step=True` runs every outer step, or
+    `steps_per_kernel` of them per launch, through the whole-step kernel
+    (`ops/step_kernels.py`). On a CPU tensor each wrapper runs its plain
     PyTorch version, which is how the tests reach them.
     """
 
@@ -214,15 +216,39 @@ class SolverSettings:
             raise ValueError("rre_depth must be >= 2")
         if self.rre_every > 0 and self.chunk_size < self.rre_every * (
                 self.rre_depth + 1):
+            # the snapshot buffer is chunk-local (solver/simple.py
+            # run_chunk): a shorter chunk would never jump
             raise ValueError(
                 f"rre_every={self.rre_every} with rre_depth="
                 f"{self.rre_depth} needs chunk_size >= "
                 f"{self.rre_every * (self.rre_depth + 1)}")
         if self.steps_per_kernel < 1:
             raise ValueError("steps_per_kernel must be >= 1")
-        if self.steps_per_kernel > 1 and not self.fused_step:
-            raise ValueError(
-                "steps_per_kernel > 1 requires fused_step=True")
+        if self.steps_per_kernel > 1:
+            if not self.fused_step:
+                raise ValueError(
+                    "steps_per_kernel > 1 requires fused_step=True")
+            if self.convergence_hold > 1:
+                raise ValueError(
+                    "steps_per_kernel > 1 is incompatible with "
+                    "convergence_hold > 1 (the hold counts per-iteration "
+                    "crossings, which a multi-step kernel cannot observe)")
+            # detector checks run once per launch and fire on exact
+            # multiples of their cadence
+            cadences = [("chunk_size", self.chunk_size)]
+            if self.cauchy_tol > 0.0:
+                cadences.append(("cauchy_check_every", self.cauchy_check_every))
+            if self.plateau_patience > 0:
+                cadences.append(
+                    ("plateau_check_every", self.plateau_check_every))
+            if self.rre_every > 0:
+                cadences.append(("rre_every", self.rre_every))
+            for name, v in cadences:
+                if v % self.steps_per_kernel != 0:
+                    raise ValueError(
+                        f"steps_per_kernel={self.steps_per_kernel} must "
+                        f"divide {name}={v} (detector checks run once per "
+                        "kernel launch and fire on exact multiples)")
         if self.mg_slab_rows < 0 or self.mg_slab_rows % 16:
             raise ValueError(
                 "mg_slab_rows must be 0 (auto) or a positive multiple of 16")
@@ -231,6 +257,10 @@ class SolverSettings:
             raise ValueError(
                 "mg_slab_rows applies to the kernel multigrid pressure "
                 "path only (pressure_solver='multigrid', use_pallas=True)")
+        if self.mg_slab_rows > 0 and self.fused_step:
+            raise ValueError(
+                "mg_slab_rows (streamed multigrid) is incompatible with "
+                "fused_step: the fused whole-step kernel is VMEM-resident")
         if self.pressure_solver == "tiled" and self.dtype != "float32":
             raise ValueError("pressure_solver='tiled' is float32-only")
         for flag in ("fused_step", "use_pallas"):
@@ -282,10 +312,6 @@ def refuse_unported(settings: SolverSettings, mesh: MeshParameters) -> None:
     """Raise NotImplementedError for settings whose kernels or modules this
     port does not have yet, naming the ROADMAP item that ports them."""
     unported = []
-    if settings.fused_step:
-        unported.append(
-            "fused_step=True (the whole-step kernel: ROADMAP queue B, "
-            "row 3 of the kernel table)")
     if settings.pressure_solver == "tiled":
         unported.append(
             "pressure_solver='tiled' (the slab-streamed sweep kernel: "
@@ -297,10 +323,6 @@ def refuse_unported(settings: SolverSettings, mesh: MeshParameters) -> None:
             "use_pallas past the big-grid threshold or with mg_slab_rows "
             "(the streamed momentum and multigrid kernels: ROADMAP queue "
             "B, rows 4 and 6-8)")
-    if settings.rre_every > 0:
-        unported.append(
-            "rre_every>0 (the RRE extrapolator ops/extrapolate.py: "
-            "ROADMAP queue A, item A5)")
     if settings.spmd_devices > 1:
         unported.append(
             "spmd_devices>1 (the sharded solver parallel/: ROADMAP queue "
@@ -335,6 +357,21 @@ class CaseConfig:
         case_name: str = "lid driven cavity",
         bc_label: str = "lid_driven_cavity",
     ) -> "CaseConfig":
+        # the JAX package's VMEM gate, kept with its message so that both
+        # packages accept the same configurations (the CUDA kernels would
+        # take these grids)
+        vmem_resident = settings.fused_step or (
+            settings.use_pallas and settings.pressure_solver != "multigrid")
+        if vmem_resident:
+            est = (mesh.nx + 2) * (mesh.ny + 2) * 4 * 30
+            if not settings.fused_step:
+                est //= max(1, settings.spmd_devices)
+            if est > 100 * 1024 * 1024:
+                raise ValueError(
+                    f"fused_step/use_pallas: {mesh.nx}x{mesh.ny} needs "
+                    f"~{est / 2**20:.0f} MiB of VMEM (>100 MiB budget). Use "
+                    "pressure_solver='multigrid' (use_pallas streams it "
+                    "through VMEM at any size) for grids beyond ~900^2.")
         refuse_unported(settings, mesh)
         return cls(
             mesh=mesh,

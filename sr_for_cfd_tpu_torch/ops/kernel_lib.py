@@ -25,8 +25,11 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_PATH = BUILD_DIR / "libsrcfd_kernels.so"
+# -fmad=false: no multiply-add is contracted, so each kernel rounds
+# operation by operation as its plain PyTorch version does (explicit
+# fmaf() calls stay fused)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +51,16 @@ SIGNATURES = {
                                    _I, _P]),
     "srcfd_mg_col_transfer": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _F, _I,
                                    _P]),
+    "srcfd_step_small_fits": (_I, [_I, _I]),
+    "srcfd_step_small": (_I, [_P] * 21),
+    "srcfd_step_mom_partials": (_I, [_I, _I]),
+    "srcfd_step_proj_partials": (_I, [_I, _I]),
+    "srcfd_step_mom_half": (_I, [_P] * 9 + [_I, _P, _P]),
+    "srcfd_step_relax": (_I, [_P, _P, _I, _I, _F, _P]),
+    "srcfd_step_bc": (_I, [_P, _I, _P, _P, _P, _P]),
+    "srcfd_step_fluxes": (_I, [_P] * 8),
+    "srcfd_step_project": (_I, [_P] * 13),
+    "srcfd_step_sums": (_I, [_P, _I, _P, _P]),
 }
 
 _lock = threading.Lock()

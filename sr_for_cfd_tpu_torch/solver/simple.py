@@ -6,18 +6,22 @@ BC -> projection (+ residuals) -> u, v BCs -> Rhie-Chow -> RMS check.
 With `use_pallas` the pressure solve runs on the hand-written CUDA kernels
 (`ops/pressure_kernels.py` for 'sweeps', `ops/mg_kernels.py` for
 'multigrid'); momentum, fluxes, BCs and projection are plain PyTorch, as
-they are `jnp` outside any Pallas kernel in the JAX package.
+they are `jnp` outside any Pallas kernel in the JAX package. With
+`fused_step` the whole step, `steps_per_kernel` of them per call, runs
+through `ops/step_kernels.py` (`_fused_step`).
 
 The JAX package runs chunks of outer steps inside one `lax.while_loop`.
 Here the host runs each step and reads its three residuals; `run_chunk`
-applies the same detectors in the same order (sustained hold, field
-Cauchy, plateau window), with numpy scalars of the working dtype, so the
-exit decisions and iteration counts are the JAX package's. `CFDSolver.solve`
+applies the same RRE jumps and detectors in the same order (RRE,
+sustained hold, field Cauchy, plateau window), with numpy scalars of the
+working dtype, so the exit decisions and iteration counts are the JAX
+package's. `CFDSolver.solve`
 adds the per-chunk host checks (history, divergence, host plateau).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, Optional, Tuple
 
@@ -32,6 +36,7 @@ from ..config import (
     MeshParameters,
     SolverSettings,
 )
+from ..ops import extrapolate as rre
 from ..ops.bc import BFSInletProfile, apply_bc, apply_bfs_inlet
 from ..ops.stencil import (
     face_fluxes,
@@ -85,6 +90,8 @@ def simple_step(
     mesh, fluid, st = case.mesh, case.fluid, case.settings
     if nu is None:
         nu = torch.tensor(fluid.nu, dtype=state.u.dtype, device=state.u.device)
+    if st.fused_step:
+        return _fused_step(state, case, profile, nu, with_counts=with_counts)
     dx, dy, volp, dt = mesh.dx, mesh.dy, mesh.volp, st.dt
     sweep_kw = dict(
         scheme=st.scheme, dx=dx, dy=dy, dt=dt, nu=nu, volp=volp,
@@ -131,6 +138,30 @@ def simple_step(
     return new_state
 
 
+def _fused_step(state: SolverState, case: CaseConfig,
+                profile: Optional[BFSInletProfile], nu, with_counts: bool = False):
+    """`steps_per_kernel` outer steps through the whole-step kernel; rms
+    from the last step's residual sums, counts summed over the steps."""
+    from ..ops.step_kernels import simple_step_kernel
+
+    st = case.settings
+    u, v, p, ff, res, cnt = simple_step_kernel(
+        state.u, state.v, state.p, state.ff, case, profile, nu=nu)
+    rms = (torch.sqrt(res / (case.mesh.nx * case.mesh.ny)) / st.dt).cpu().numpy()
+    crit = np.asarray([st.criterion("u"), st.criterion("v"),
+                       st.criterion("p")], dtype=rms.dtype)
+    new_state = state.replace(
+        u=u, v=v, p=p,
+        u_old=u[1:-1, 1:-1], v_old=v[1:-1, 1:-1], p_old=p[1:-1, 1:-1],
+        ff=ff, rms=rms, count=state.count + st.steps_per_kernel,
+        converged=bool(np.all(rms <= crit)),
+        diverged=not bool(np.all(np.isfinite(rms))),
+    )
+    if with_counts:
+        return new_state, dict(zip("uvp", cnt))
+    return new_state
+
+
 def _active(state: SolverState, max_iterations: int) -> bool:
     return (not state.converged and not state.diverged
             and state.count < max_iterations)
@@ -172,16 +203,48 @@ def apply_detectors(s: SolverState, st: SolverSettings) -> SolverState:
     return s
 
 
+def _rre_update(s: SolverState, buf, case: CaseConfig,
+                profile: Optional[BFSInletProfile]):
+    """Push a snapshot when the count is on the RRE cadence; once the
+    buffer holds rre_depth+1 snapshots, jump (if the extrapolation is
+    plausible) and restart the buffer."""
+    st = case.settings
+    if s.count % st.rre_every == 0 and s.count >= st.rre_min_count:
+        buf = rre.push_snapshot(buf, rre.flatten_state(s.u, s.v, s.p, s.ff))
+    if buf.count > st.rre_depth:
+        x_star, ok = rre.rre_extrapolate(buf.snaps)
+        if ok:
+            u, v, p, ff = rre.inject_state(x_star, case, profile)
+            s = s.replace(u=u, v=v, p=p, u_old=u[1:-1, 1:-1],
+                          v_old=v[1:-1, 1:-1], p_old=p[1:-1, 1:-1], ff=ff)
+        buf = buf._replace(count=0)
+    return s, buf
+
+
 def run_chunk(state: SolverState, profile: Optional[BFSInletProfile],
               case: CaseConfig, n_steps: int, nu=None) -> SolverState:
     """Up to `n_steps` outer iterations; stops early on convergence,
-    divergence or max_iterations."""
+    divergence or max_iterations. With `fused_step`, each call of the step
+    runs `steps_per_kernel` iterations and the detectors run once per call.
+    The RRE snapshot buffer is local to the chunk, as in the JAX package:
+    a cycle needs rre_every * (rre_depth + 1) iterations within one call."""
     st = case.settings
+    k_per_call = st.steps_per_kernel if st.fused_step else 1
+    buf = None
+    if st.rre_every > 0:
+        buf = rre.empty_buffer(st.rre_depth,
+                               rre.flat_size(case.mesh.nx, case.mesh.ny),
+                               state.u.dtype, state.u.device)
+    i = 0
+    # each pass advances i by k_per_call >= 1, so n_steps passes bound it
     for _ in range(n_steps):
-        if not _active(state, st.max_iterations):
+        if not (i < n_steps and _active(state, st.max_iterations)):
             break
         state = simple_step(state, case, profile, nu=nu)
+        if buf is not None:
+            state, buf = _rre_update(state, buf, case, profile)
         state = apply_detectors(state, st)
+        i += k_per_call
     return state
 
 
@@ -235,10 +298,18 @@ class CFDSolver:
         process) so that the build stays out of the timed solve; returns
         the seconds spent."""
         t0 = time.perf_counter()
-        if self.device.type == "cuda" and self.settings.use_pallas:
+        st = self.settings
+        if self.device.type == "cuda" and (st.use_pallas or st.fused_step):
             from ..ops.kernel_lib import load_library
 
             load_library()
+        if self.device.type == "cuda" and st.fused_step:
+            # one step from the state, discarded: the first launch of each
+            # kernel pays its module load
+            one = dataclasses.replace(
+                self.case, settings=dataclasses.replace(st, steps_per_kernel=1))
+            simple_step(self.state, one, self.profile, nu=self._nu)
+            torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
 
     @property

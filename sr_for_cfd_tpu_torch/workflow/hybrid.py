@@ -36,12 +36,18 @@ from ..utils.naming import (
 
 
 def kernel_launch_counts() -> Dict[str, int]:
-    """Launch counters of the CUDA kernel wrappers."""
+    """Launch counters of the CUDA kernel wrappers, and the RRE jumps
+    attempted and taken."""
+    from ..ops.extrapolate import rre_extrapolate
     from ..ops.mg_kernels import mg_solve_pressure_kernel
     from ..ops.pressure_kernels import solve_pressure_kernel
+    from ..ops.step_kernels import simple_step_kernel
 
     return {"rb_sor_pressure": solve_pressure_kernel.launches,
-            "mg_vcycle_pressure": mg_solve_pressure_kernel.launches}
+            "mg_vcycle_pressure": mg_solve_pressure_kernel.launches,
+            "fused_step": simple_step_kernel.launches,
+            "rre_attempts": rre_extrapolate.attempts,
+            "rre_taken": rre_extrapolate.taken}
 
 
 def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
@@ -230,7 +236,7 @@ def run_hybrid_experiment(
     """coarse -> SR -> warm-started fine (capped) vs cold-start fine, then
     the centerline comparison. Returns a results dict with the JAX
     package's keys, plus each phase's solver under "solvers" and the CUDA
-    kernel launches of each phase under "kernel_launches"."""
+    kernel launches and RRE jumps of each phase under "kernel_launches"."""
     if save_results:
         if output_dir is None:
             output_dir = create_timestamped_output_dir()

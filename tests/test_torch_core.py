@@ -61,10 +61,8 @@ def test_settings_validation_matches_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(fused_step=True), "row 3"),
     (dict(pressure_solver="tiled"), "row 5"),
     (dict(use_pallas=True, pressure_solver="multigrid", mg_slab_rows=16), "rows 4"),
-    (dict(rre_every=100, chunk_size=1000), "A5"),
     (dict(spmd_devices=2), "A11"),
 ])
 def test_unported_settings_are_refused(kw, item):
@@ -73,6 +71,44 @@ def test_unported_settings_are_refused(kw, item):
         tcfg.CaseConfig.build(tcfg.MeshParameters(nx=16, ny=16),
                               tcfg.FluidProperties(), settings,
                               tcfg.BoundaryConditions())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fused_step=True, steps_per_kernel=4, chunk_size=100),
+    dict(fused_step=True, pressure_solver="multigrid"),
+    dict(rre_every=100, chunk_size=1000),
+])
+def test_fused_and_rre_settings_build(kw):
+    """The fused step and RRE are ported: both packages build these."""
+    for mod in (jcfg, tcfg):
+        mod.CaseConfig.build(mod.MeshParameters(nx=16, ny=16),
+                             mod.FluidProperties(), mod.SolverSettings.make(**kw),
+                             mod.BoundaryConditions())
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(fused_step=True, steps_per_kernel=3, chunk_size=100),
+     "must divide chunk_size"),
+    (dict(fused_step=True, steps_per_kernel=400, chunk_size=1000),
+     "must divide chunk_size"),
+    (dict(fused_step=True, steps_per_kernel=2, convergence_hold=3),
+     "incompatible with convergence_hold"),
+    (dict(fused_step=True, mg_slab_rows=16, pressure_solver="multigrid",
+          use_pallas=True), "incompatible with fused_step"),
+    (dict(fused_step=True, nx=1000), r"needs ~\d+ MiB"),
+])
+def test_fused_settings_refused_like_jax(kw, match):
+    """Both packages refuse the same fused configurations with the same
+    message: the steps_per_kernel cadences and hold, streamed multigrid
+    with the fused step, and a fused grid past the size gate of
+    `CaseConfig.build` (~935^2)."""
+    kw = dict(kw)
+    n = kw.pop("nx", 16)
+    for mod in (jcfg, tcfg):
+        with pytest.raises(ValueError, match=match):
+            mod.CaseConfig.build(mod.MeshParameters(nx=n, ny=n),
+                                 mod.FluidProperties(), mod.SolverSettings.make(**kw),
+                                 mod.BoundaryConditions())
 
 
 def test_big_grid_kernel_path_is_refused():

@@ -20,6 +20,11 @@ from sr_for_cfd_tpu_torch.ops.pressure_kernels import (
     solve_pressure_plain,
 )
 from sr_for_cfd_tpu_torch.ops.stencil import face_fluxes
+from sr_for_cfd_tpu_torch.ops.step_kernels import (
+    simple_step_kernel,
+    simple_step_plain,
+)
+from sr_for_cfd_tpu_torch.solver.cases import make_bfs_solver, make_cavity_solver
 
 REL_TOL = 2e-5
 
@@ -108,6 +113,97 @@ def test_kernel_step_matches_plain_step(card):
     cpu = make_bfs_solver(device="cpu", **kw)
     assert gpu.solve(verbose=False, save_results=False)[0] == 10
     assert cpu.solve(verbose=False, save_results=False)[0] == 10
+    a, b = gpu.interior_fields(), cpu.interior_fields()
+    for c in "uvp":
+        scale = max(1.0, float(np.abs(b[c]).max()))
+        np.testing.assert_allclose(a[c], b[c], rtol=0, atol=1e-4 * scale)
+
+
+# whole-step kernel: (design, solver maker, settings); inner tolerances the
+# loops reach before the float32 floor, so that the counts can be equal
+FUSED = {
+    "a_bfs10_coarse_k50": ("a", make_bfs_solver, dict(
+        nx=10, ny=10, scheme="UPWIND", pressure_sor=1.5, inner_max_iter=64,
+        inner_tolerance=1e-3, steps_per_kernel=50)),
+    "a_cavity16_quick_k4": ("a", make_cavity_solver, dict(
+        Re=100, nx=16, ny=16, dt=2e-3, scheme="QUICK", steps_per_kernel=4)),
+    # 185 KB of shared memory: past the 48 KB a block gets without opting in
+    "a_cavity60_upwind_k2": ("a", make_cavity_solver, dict(
+        Re=100, nx=60, ny=60, dt=2e-3, scheme="UPWIND", inner_tolerance=1e-3,
+        steps_per_kernel=2)),
+    "b_cavity64_quick_k2": ("b", make_cavity_solver, dict(
+        Re=100, nx=64, ny=64, dt=2e-3, scheme="QUICK", inner_tolerance=1e-3,
+        steps_per_kernel=2)),
+    "b_bfs40_multigrid_k2": ("b", make_bfs_solver, dict(
+        nx=40, ny=40, pressure_solver="multigrid", inner_tolerance=1e-3,
+        steps_per_kernel=2)),
+}
+
+
+def _fused_solver(make, device, **kw):
+    solver = make(device=device, dtype="float32", fused_step=True,
+                  chunk_size=kw["steps_per_kernel"], **kw)
+    rng = np.random.default_rng(kw["nx"])
+    nx, ny = solver.mesh.nx, solver.mesh.ny
+    coarse = {c: torch.tensor(rng.standard_normal((1, 1, 8, 8)) * 0.1) for c in "uvp"}
+    solver.warm_start({c: torch.nn.functional.interpolate(
+        f, size=(ny, nx), mode="bicubic", align_corners=True)[0, 0].numpy()
+        for c, f in coarse.items()})
+    return solver
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FUSED))
+def test_fused_step_kernel_matches_plain(card, name):
+    """Designs (a) and (b) against the plain version on the same seeded
+    state: fields and fluxes within 2e-5 of the largest value, equal
+    counts."""
+    design, make, kw = FUSED[name]
+    solver = _fused_solver(make, card, **kw)
+    s = solver.state
+    args = (s.u, s.v, s.p, s.ff, solver.case, solver.profile)
+    out = simple_step_kernel(*args, nu=solver._nu, _design=design)
+    ref = simple_step_plain(*args, nu=solver._nu)
+    for a, b in zip((*out[:3], *out[3]), (*ref[:3], *ref[3])):
+        _close(a, b)
+    assert out[5] == ref[5]
+    torch.testing.assert_close(out[4], ref[4], rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+def test_fused_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    solver = _fused_solver(make_cavity_solver, card, nx=16, ny=16,
+                           steps_per_kernel=1)
+    s = solver.state
+    rest = (s.ff, solver.case, solver.profile)
+    with pytest.raises(ValueError, match="float32"):
+        simple_step_kernel(s.u.double(), s.v, s.p, *rest)
+    with pytest.raises(ValueError, match="contiguous"):
+        simple_step_kernel(s.u.T, s.v, s.p, *rest)
+    mg = _fused_solver(make_cavity_solver, card, nx=16, ny=16, steps_per_kernel=1,
+                       pressure_solver="multigrid")
+    with pytest.raises(ValueError, match="design"):
+        simple_step_kernel(mg.state.u, mg.state.v, mg.state.p, mg.state.ff,
+                           mg.case, mg.profile, _design="a")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", [None, "b"])
+def test_fused_solver_on_the_card_matches_the_cpu(card, design):
+    """A BFS 10x10 solve of the coarse phase's settings (500 steps, 50
+    per launch) on the card and on the CPU: equal counts, fields within
+    1e-4 of the largest value."""
+    kw = dict(nx=10, ny=10, dtype="float32", fused_step=True,
+              steps_per_kernel=50, pressure_sor=1.5, inner_max_iter=64,
+              max_iterations=500, chunk_size=500, inner_tolerance=1e-3)
+    gpu = make_bfs_solver(device=card, **kw)
+    cpu = make_bfs_solver(device="cpu", **kw)
+    simple_step_kernel.force_design = design
+    try:
+        assert gpu.solve(verbose=False, save_results=False)[0] == 500
+    finally:
+        simple_step_kernel.force_design = None
+    assert cpu.solve(verbose=False, save_results=False)[0] == 500
     a, b = gpu.interior_fields(), cpu.interior_fields()
     for c in "uvp":
         scale = max(1.0, float(np.abs(b[c]).max()))
