@@ -7,8 +7,8 @@ Phases, each ending in `torch.cuda.synchronize()` so that a fault shows
 where it happened; any failure ends the run with a non-zero exit code and
 no result line:
 
-1. build: compile `sr_for_cfd_tpu_torch/csrc/*.cu` with one nvcc call
-   (ptxas report printed) and load the library.
+1. build: compile `sr_for_cfd_tpu_torch/csrc/*.cu`, one nvcc per source,
+   all started together (ptxas report printed), link and load the library.
 2. kernels: each CUDA kernel against its plain PyTorch version on the same
    seeded inputs on the card: the red-black SOR pressure loop at 12x12 (the
    hybrid's coarse grid) and 402x402 (max_iter 64), the V-cycle loop at
@@ -16,8 +16,11 @@ no result line:
    five gates: design (a) on the BFS 10x10 coarse settings (K=500) and a
    16x16 QUICK cavity (K=4), design (b) forced on a 64x64 QUICK cavity,
    at 400x400 BFS in multigrid mode (K=10) and in point-iteration mode
-   (K=1, omega 1.0). Max abs difference against the stated tolerance,
-   counts, kernel and plain times (CUDA events) and bounds.
+   (K=1, omega 1.0). The big-grid kernels at 2048x2048: a QUICK momentum
+   pass (3 sweeps) and a momentum solve, the streamed V-cycle's pass A,
+   level-1 correction and pass B each alone, one forced streamed cycle and
+   a 5-cycle streamed solve. Max abs difference against the stated
+   tolerance, counts, kernel and plain times (CUDA events) and bounds.
 3. non-fused main path: `run_hybrid_experiment` for the BFS Re=400 hybrid
    at full width with `use_pallas=True, fused_step=False` (10x10 coarse on
    the SOR kernel, the shipped 10->400 autoencoder, warm and cold 400x400
@@ -28,13 +31,19 @@ no result line:
    10 steps per call, design (b), with RRE. Cut to budgets 2000 / 300 /
    300, RRE every 40 steps from step 0 in chunks of 280 (one jump per fine
    phase), plateau checks every 100 and the Cauchy check at 300.
-   In 3 and 4 the launch counters are set to 0 just before and read just
+5. big-grid main path: `scripts/scaling_bench.py`'s mg_pallas case at
+   2048x2048 (lid-driven cavity, Re=1000, QUICK, dt=1e-3, use_pallas,
+   multigrid), which the big-grid threshold routes to the tiled momentum
+   kernel and the streamed V-cycle, through make_cavity_solver(...).solve:
+   200 outer steps from the cold start, as the bench runs them.
+   In 3, 4 and 5 the launch counters are set to 0 just before and read just
    after; each kernel of the path must have launched in its phases, and
    each fine phase of 4 must have attempted an RRE jump.
-5. references: the non-fused configuration of 3 and the fused one of 4 (with
+6. references: the non-fused configuration of 3 and the fused one of 4 (with
    design (b) forced everywhere) at a small size (BFS 10x10 coarse, bicubic
-   SR, 32x32 fine) on the card and with the plain PyTorch path on the CPU;
-   iteration counts must be equal and fields within 1e-4 relative.
+   SR, 32x32 fine), and the 48x48 cavity with mg_slab_rows=16 (the big-grid
+   path at a small size), on the card and with the plain PyTorch path on
+   the CPU; iteration counts must be equal and fields within 1e-4 relative.
 
 The last lines are a `{"kernels": [...]}` line, the card's name and power
 limit as nvidia-smi prints them, and `{"ok": true, "device": {...}}`.
@@ -128,11 +137,32 @@ def mg_work(plan, n_pre, n_post, coarsest_sweeps, cycles):
     mats = [bm for group in (plan.row_restrict, plan.col_restrict,
                              plan.row_prolong, plan.col_prolong)
             for bm in group if bm is not None]
-    band = {id(bm): int((bm.hi - bm.lo).sum().item()) for bm in mats}
-    nbytes = wrapper_bytes(n0, m0) + sum(4 * band[id(bm)] + 8 * bm.lo.numel()
-                                         for bm in mats)
+    nbytes = wrapper_bytes(n0, m0) + sum(band_bytes(bm) for bm in mats)
     flops = (FLOP_RESID_CELL + FLOP_SUMSQ_CELL) * n0 * m0  # the fine rms
+    return nbytes, (flops + level_flops(plan, n_pre, n_post, coarsest_sweeps)) * cycles
+
+
+def band_size(bm):
+    """Non-zero entries of a transfer matrix's band."""
+    return int((bm.hi - bm.lo).sum().item())
+
+
+def band_bytes(bm):
+    """Bytes of a transfer matrix's band and its [lo, hi) bounds."""
+    return 4 * band_size(bm) + 8 * bm.lo.numel()
+
+
+def level_flops(plan, n_pre, n_post, coarsest_sweeps, start=0):
+    """Flops of one V-cycle on the levels from `start` down: each level
+    smoothed, its residual restricted, the correction prolonged."""
+    sizes = plan.setup.sizes
+    band = {id(bm): band_size(bm) for group in (
+        plan.row_restrict, plan.col_restrict, plan.row_prolong, plan.col_prolong)
+        for bm in group if bm is not None}
+    flops = 0
     for lvl, (n, m) in enumerate(sizes):
+        if lvl < start:
+            continue
         if lvl + 1 == len(sizes):
             flops += FLOP_SMOOTH_CELL * n * m * coarsest_sweeps
             continue
@@ -149,7 +179,44 @@ def mg_work(plan, n_pre, n_post, coarsest_sweeps, cycles):
             flops += 2 * nc * band[id(plan.col_restrict[lvl])]
             flops += 2 * nc * band[id(plan.col_prolong[lvl])]
         flops += nc * mc + n * m  # restriction scale, correction add
-    return nbytes, flops * cycles
+    return flops
+
+
+def momentum_work(nx, ny, scheme, sweeps, passes):
+    """(bytes, flops) of a tiled momentum solve: the padded field read and
+    written once, the old field and four fluxes read once; every sweep
+    updates every interior cell, the last sweep of each pass sums r^2."""
+    cells = nx * ny
+    nbytes = 4 * (2 * (nx + 2) * (ny + 2) + 5 * cells)
+    return nbytes, cells * (FLOP_MOM_CELL[scheme] * sweeps + FLOP_SUMSQ_CELL * passes)
+
+
+def stream_work(lv, part):
+    """(bytes, flops) of one streamed V-cycle's pass A ("a"), level-1
+    correction ("l1") or pass B ("b"), as `ops/stream_kernels.py` computes
+    them on `lv`'s hierarchy."""
+    from sr_for_cfd_tpu_torch.ops.mg_kernels import plan_hierarchy
+
+    plan = plan_hierarchy(*lv.key, str(lv.device))
+    cells, coarse_rows = lv.nf * lv.mf, lv.nc * lv.mf
+    if part == "a":
+        col = plan.col_restrict[0]
+        nbytes = 4 * (3 * cells + lv.nc * lv.mc) + (band_bytes(col) if col else 0)
+        flops = (FLOP_SMOOTH_CELL * lv.n_pre * cells  # the sweeps
+                 + FLOP_RESID_CELL * cells // 2 + FLOP_SUMSQ_CELL * cells  # entry rms
+                 + FLOP_RESID_CELL * cells + 7 * coarse_rows  # residual, rows
+                 + (2 * lv.nc * band_size(col) if col else 0))
+        return nbytes, flops
+    if part == "l1":
+        col = plan.col_prolong[0]
+        mats = [bm for group in (plan.row_restrict, plan.col_restrict,
+                                 plan.row_prolong, plan.col_prolong)
+                for bm in group[1:] if bm is not None]
+        nbytes = (4 * (lv.nc * lv.mc + coarse_rows) + sum(band_bytes(bm) for bm in mats)
+                  + (band_bytes(col) if col else 0))
+        flops = level_flops(plan, lv.n_pre, lv.n_post, lv.coarsest_sweeps, start=1)
+        return nbytes, flops + (2 * lv.nc * band_size(col) if col else 0)
+    return 4 * (3 * cells + coarse_rows), (4 + FLOP_SMOOTH_CELL * lv.n_post) * cells
 
 
 # per cell of a momentum red-black sweep (fused_step.cu mom_residual and
@@ -364,6 +431,157 @@ def phase_fused(device):
     return results
 
 
+BIG_N = 2048  # the big-grid gates and main path: scaling_bench.py's 2048^2
+
+
+def max_err(pairs):
+    """Largest |kernel - plain| and its ratio to REL_TOL x max|plain| over
+    (kernel, plain) output pairs; fails beyond the tolerance."""
+    import torch
+
+    err, worst = 0.0, 0.0
+    for k, p in pairs:
+        e = float(torch.max(torch.abs(k - p)).item())
+        tol = REL_TOL * max(1.0, float(torch.max(torch.abs(p)).item()))
+        if not (math.isfinite(e) and e <= tol):
+            fail(f"kernel and plain version differ by {e:.3e} (tolerance {tol:.3e})")
+        err, worst = max(err, e), max(worst, e / tol)
+    return err, worst
+
+
+def phase_big_grid_kernels(device):
+    """The big-grid kernels against their plain versions at 2048^2 on the
+    same seeded inputs: a QUICK momentum pass (3 sweeps) and a momentum
+    solve; pass A, the level-1 correction and pass B each alone; one forced
+    streamed V-cycle and a 5-cycle streamed solve."""
+    import numpy as np
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops import momentum_kernels as mk
+    from sr_for_cfd_tpu_torch.ops import stream_kernels as sk
+    from sr_for_cfd_tpu_torch.ops.multigrid import frozen_ghost_rhs
+    from sr_for_cfd_tpu_torch.ops.stencil import face_fluxes
+
+    n = BIG_N
+    rows, gates = {}, []
+
+    def timed(name, kernel, plain, work, reps=5):
+        ms = cuda_ms(kernel, reps)
+        plain_ms = cuda_ms(plain, 1)
+        b_ms, b_by = bound_ms(*work)
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by})")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # momentum: smooth seeded fields on the 2048^2 cavity's spacing
+    f = smooth_fields(21, n + 2, n + 2, scale=0.3)
+    u, v = (torch.tensor(f[c], dtype=torch.float32, device=device) for c in "uv")
+    old = u[1:-1, 1:-1] + 0.01 * torch.tensor(smooth_fields(22, n, n)["u"],
+                                              dtype=torch.float32, device=device)
+    ff = face_fluxes(u, v, 1.0 / n, 1.0 / n)
+    mkw = dict(scheme="QUICK", dx=1.0 / n, dy=1.0 / n, dt=1e-3, nu=1e-3,
+               volp=1.0 / n**2, check_every=3)
+    # (gate, tol, max_iter): one pass exactly; a solve to a tolerance ten
+    # passes away (the rms falls ~0.7x per pass here, from 7.1e-7; 2.80e-8
+    # after the tenth), far above the float32 floor
+    for gate, tol, max_iter in (("pass k=3", 0.0, 3), ("solve", 3e-8, 60)):
+        kw = dict(mkw, tol=tol, max_iter=max_iter, return_count=True)
+        (out_k, n_k) = mk.tiled_solve_momentum(u, old, ff, slab_rows=256, **kw)
+        kw.pop("return_count")
+        (out_p, n_p) = mk.tiled_solve_momentum_plain(u, old, ff, **kw)
+        err, worst = max_err([(out_k, out_p)])
+        if n_k != n_p:
+            fail(f"tiled momentum {gate}: {n_k} sweeps, plain {n_p}")
+        log(f"  tiled_momentum {gate} {n}^2 QUICK: max_abs_err={err:.3e} "
+            f"({worst:.3f} of its tolerance), sweeps kernel={n_k} plain={n_p}")
+        t = timed(f"tiled_momentum {gate}",
+                  lambda: mk.tiled_solve_momentum(u, old, ff, slab_rows=256, **kw),
+                  lambda: mk.tiled_solve_momentum_plain(u, old, ff, **kw),
+                  momentum_work(n, n, "QUICK", n_k, n_k // 3), reps=3)
+        gates.append(dict(gate=f"tiled_momentum {gate}", sweeps=n_k,
+                          max_abs_err=err, **t))
+        if gate == "pass k=3":
+            rows["tiled_momentum"] = dict(max_abs_err=err, **t)
+    del u, v, old, ff
+
+    # the streamed V-cycle on a seeded pressure problem, cavity spacing
+    rng = np.random.default_rng(4321)
+    p, ff, geo = seeded_problem(rng, n, n, 1.0, 1.0, device)
+    lv = sk.StreamLevels(n, n, geo["dx"], geo["dy"], geo["volp"], device)
+    inv_dx2, inv_dy2 = lv.setup.spacings[0]
+    b = frozen_ghost_rhs(p, ff, geo["dt"], geo["rho"], geo["volp"], inv_dx2,
+                         inv_dy2).contiguous()
+    x = p[1:-1, 1:-1].contiguous()
+    xa, b1, rms = sk.stream_pass_a(x, b, lv)
+    xa_p, b1_p, rms_p = sk.stream_pass_a_plain(x, b, lv)
+    err, worst = max_err([(xa, xa_p), (b1, b1_p), (rms, rms_p.reshape(1))])
+    log(f"  stream_pass_a {n}^2: max_abs_err={err:.3e} ({worst:.3f} of its "
+        f"tolerance), entry rms kernel={rms.item():.6e} plain={rms_p.item():.6e}")
+    rows["stream_pass_a"] = dict(max_abs_err=err, **timed(
+        "stream_pass_a", lambda: sk.stream_pass_a(x, b, lv),
+        lambda: sk.stream_pass_a_plain(x, b, lv), stream_work(lv, "a")))
+    e = sk.level1_correction(b1_p, lv).clone()
+    e_p = sk.level1_correction_plain(b1_p, lv)
+    err, worst = max_err([(e, e_p)])
+    log(f"  stream_level1_correction {n}^2 (levels {lv.setup.sizes[1:]}): "
+        f"max_abs_err={err:.3e} ({worst:.3f} of its tolerance)")
+    rows["stream_level1"] = dict(max_abs_err=err, **timed(
+        "stream_level1_correction", lambda: sk.level1_correction(b1_p, lv),
+        lambda: sk.level1_correction_plain(b1_p, lv), stream_work(lv, "l1")))
+    xb = sk.stream_pass_b(xa_p.clone(), b, e_p, lv)
+    xb_p = sk.stream_pass_b_plain(xa_p, b, e_p, lv)
+    err, worst = max_err([(xb, xb_p)])
+    log(f"  stream_pass_b {n}^2: max_abs_err={err:.3e} ({worst:.3f} of its tolerance)")
+    scratch = xa_p.clone()
+    rows["stream_pass_b"] = dict(max_abs_err=err, **timed(
+        "stream_pass_b", lambda: sk.stream_pass_b(scratch, b, e_p, lv),
+        lambda: sk.stream_pass_b_plain(xa_p, b, e_p, lv), stream_work(lv, "b")))
+    for gate, cycles in (("one forced cycle", 1), ("5-cycle solve", 5)):
+        kw = dict(geo, tol=1e-30, max_cycles=cycles, return_count=True)
+        out_k, n_k = sk.stream_mg_solve_pressure(p, ff, **kw)
+        # the plain cycle on the card: the same loop with the plain versions
+        out_p, n_p = plain_streamed_solve(p, ff, geo, cycles)
+        err, worst = max_err([(out_k, out_p)])
+        if not n_k == n_p == cycles:
+            fail(f"streamed solve {gate}: {n_k} cycles, plain {n_p}")
+        log(f"  stream_mg_solve_pressure {gate} {n}^2: max_abs_err={err:.3e} "
+            f"({worst:.3f} of its tolerance), cycles kernel={n_k} plain={n_p}")
+        ms = cuda_ms(lambda: sk.stream_mg_solve_pressure(p, ff, **kw), 2)
+        plain_ms = cuda_ms(lambda: plain_streamed_solve(p, ff, geo, cycles), 1)
+        work = [stream_work(lv, part) for part in ("a", "l1", "b")]
+        b_ms, b_by = bound_ms(sum(w[0] for w in work) * cycles,
+                              sum(w[1] for w in work) * cycles)
+        log(f"  stream_mg_solve_pressure {gate}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        gates.append(dict(gate=f"stream_mg_solve_pressure {gate}", cycles=n_k,
+                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by))
+    return rows, gates
+
+
+def plain_streamed_solve(p, ff, geo, cycles):
+    """`cycles` streamed V-cycles (no exit check) with the plain versions,
+    on p's device: the reference of the streamed solve gates."""
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops import stream_kernels as sk
+    from sr_for_cfd_tpu_torch.ops.multigrid import frozen_ghost_rhs
+
+    nx, ny = p.shape[0] - 2, p.shape[1] - 2
+    lv = sk.StreamLevels(nx, ny, geo["dx"], geo["dy"], geo["volp"], p.device)
+    inv_dx2, inv_dy2 = lv.setup.spacings[0]
+    b = frozen_ghost_rhs(p, ff, geo["dt"], geo["rho"], geo["volp"], inv_dx2, inv_dy2)
+    x = p[1:-1, 1:-1]
+    for _ in range(cycles):
+        x, b1, _ = sk.stream_pass_a_plain(x, b, lv)
+        x = sk.stream_pass_b_plain(x, b, sk.level1_correction_plain(b1, lv), lv)
+    out = p.clone()
+    out[1:-1, 1:-1] = x
+    if out.is_cuda:
+        torch.cuda.synchronize()
+    return out, cycles
+
+
 def finite_fields(solver):
     import torch
 
@@ -372,12 +590,16 @@ def finite_fields(solver):
 
 
 def reset_counters():
+    from sr_for_cfd_tpu_torch.ops import stream_kernels as sk
     from sr_for_cfd_tpu_torch.ops.extrapolate import rre_extrapolate
     from sr_for_cfd_tpu_torch.ops.mg_kernels import mg_solve_pressure_kernel
+    from sr_for_cfd_tpu_torch.ops.momentum_kernels import tiled_solve_momentum
     from sr_for_cfd_tpu_torch.ops.pressure_kernels import solve_pressure_kernel
     from sr_for_cfd_tpu_torch.ops.step_kernels import simple_step_kernel
 
-    for fn in (solve_pressure_kernel, mg_solve_pressure_kernel, simple_step_kernel):
+    for fn in (solve_pressure_kernel, mg_solve_pressure_kernel, simple_step_kernel,
+               tiled_solve_momentum, sk.stream_pass_a, sk.level1_correction,
+               sk.stream_pass_b):
         fn.launches = 0
     rre_extrapolate.attempts = rre_extrapolate.taken = 0
 
@@ -478,6 +700,66 @@ def phase_north_star(device):
     return totals
 
 
+# scripts/scaling_bench.py's mg_pallas case at its 2048^2 grid
+# (:16, :25-30, :41-45), which the big-grid threshold routes to the tiled
+# momentum kernel and the streamed V-cycle: BIG_GRID_STEPS outer steps from
+# the cold start, as the bench runs them
+BIG_GRID = dict(Re=1000.0, nx=BIG_N, ny=BIG_N, dt=1e-3, scheme="QUICK",
+                dtype="float32", use_pallas=True, pressure_solver="multigrid")
+BIG_GRID_STEPS = 200
+BIG_GRID_KERNELS = ("tiled_momentum", "stream_pass_a", "stream_level1",
+                    "stream_pass_b")
+
+
+def phase_big_grid(device):
+    """The 2048^2 cavity through make_cavity_solver(...).solve, launch
+    counters set to 0 just before and read just after; each step's inner
+    counts are recorded on the way (simple_step with_counts)."""
+    import torch
+
+    from sr_for_cfd_tpu_torch.config import big_grid_kernels
+    from sr_for_cfd_tpu_torch.solver import simple as tsimple
+    from sr_for_cfd_tpu_torch.solver.cases import make_cavity_solver
+    from sr_for_cfd_tpu_torch.workflow.hybrid import kernel_launch_counts
+
+    solver = make_cavity_solver(device=device, max_iterations=BIG_GRID_STEPS,
+                                chunk_size=BIG_GRID_STEPS, **BIG_GRID)
+    if not big_grid_kernels(solver.settings, solver.mesh):
+        fail("the 2048^2 cavity is not routed to the big-grid kernels")
+    solver.precompile()
+    step, counts = tsimple.simple_step, []
+
+    def counted_step(*a, **k):
+        state, c = step(*a, with_counts=True, **k)
+        counts.append(c)
+        return state
+
+    tsimple.simple_step = counted_step
+    try:
+        reset_counters()
+        iters, elapsed = solver.solve(verbose=False, save_results=False)
+        torch.cuda.synchronize()
+        launches = kernel_launch_counts()
+    finally:
+        tsimple.simple_step = step
+    if iters != BIG_GRID_STEPS or len(counts) != iters:
+        fail(f"big-grid cavity ran {iters} steps, expected {BIG_GRID_STEPS}")
+    if not finite_fields(solver):
+        fail("big-grid cavity: non-finite fields")
+    for name in BIG_GRID_KERNELS:
+        if launches[name] <= 0:
+            fail(f"the {name} kernel did not launch on the big-grid path")
+    mean = {c: sum(x[c] for x in counts) / iters for c in "uvp"}
+    if any(x["u"] % 3 or x["v"] % 3 for x in counts):
+        fail("big-grid cavity: momentum sweeps are not multiples of 3")
+    log(f"  big-grid cavity {BIG_N}^2 Re=1000 QUICK: {iters} steps in {elapsed:.3f} s, "
+        f"{1e3 * elapsed / iters:.3f} ms/iter; mean per step: u sweeps {mean['u']:.2f}, "
+        f"v sweeps {mean['v']:.2f}, p cycles {mean['p']:.2f}; launches per step "
+        f"{ {k: round(launches[k] / iters, 2) for k in BIG_GRID_KERNELS} }; "
+        f"rms {solver.state.rms.tolist()}")
+    return {k: v for k, v in launches.items() if not k.startswith("rre")}
+
+
 def small_reference(name, device, kw, coarse):
     """A hybrid configuration at a small size on the card (kernels) and on
     the CPU (plain PyTorch): equal iteration counts, fields within 1e-4 of
@@ -525,6 +807,45 @@ def phase_reference(device):
         small_reference("fused, design (b)", device, fused, NORTH_STAR_COARSE)
     finally:
         simple_step_kernel.force_design = None
+    big_grid_reference(device)
+
+
+def big_grid_reference(device):
+    """The 48^2 cavity with mg_slab_rows=16, which forces the big-grid
+    path at any size, on the card (kernels) and on the CPU (plain
+    versions): equal outer and inner counts, fields within 1e-4 of the
+    largest |value|."""
+    import numpy as np
+
+    from sr_for_cfd_tpu_torch.solver import simple as tsimple
+    from sr_for_cfd_tpu_torch.solver.cases import make_cavity_solver
+
+    kw = dict(Re=500, nx=48, ny=48, dt=2e-3, scheme="QUICK", dtype="float32",
+              pressure_solver="multigrid", chunk_size=30, max_iterations=60,
+              use_pallas=True, mg_slab_rows=16)
+    runs = {}
+    for dev in (device, "cpu"):
+        solver = make_cavity_solver(device=dev, **kw)
+        s, counts = solver.state, []
+        for _ in range(3):
+            s, c = tsimple.simple_step(s, solver.case, solver.profile,
+                                       nu=solver._nu, with_counts=True)
+            counts.append(c)
+        iters, _ = solver.solve(verbose=False, save_results=False)
+        runs[dev] = (counts, iters, solver.interior_fields())
+    (ck, ik, fk), (cp, ip, fp) = runs[device], runs["cpu"]
+    if ck != cp or ik != ip:
+        fail(f"big-grid reference: counts differ, card {ck} {ik}, CPU {cp} {ip}")
+    worst = 0.0
+    for c in "uvp":
+        err = float(np.max(np.abs(fk[c] - fp[c])))
+        scale = max(1.0, float(np.max(np.abs(fp[c]))))
+        worst = max(worst, err / scale)
+        if not (np.all(np.isfinite(fk[c])) and err <= 1e-4 * scale):
+            fail(f"big-grid reference: {c} differs by {err:.3e}")
+    log(f"  big-grid 48x48 forced-slab cavity card vs CPU: {ik} steps, inner counts "
+        f"of the first 3 steps {ck} (equal), worst relative field difference "
+        f"{worst:.3e} (limit 1e-4)")
 
 
 def main():
@@ -557,12 +878,14 @@ def main():
     t = time.perf_counter()
     kernels = phase_kernels(device)
     fused = phase_fused(device)
+    big_rows, big_gates = phase_big_grid_kernels(device)
     torch.cuda.synchronize()
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
 
     by_path = {}
     for name, phase in (("non_fused", phase_non_fused),
-                        ("north_star", phase_north_star)):
+                        ("north_star", phase_north_star),
+                        ("big_grid", phase_big_grid)):
         t = time.perf_counter()
         by_path[name] = phase(device)
         torch.cuda.synchronize()
@@ -597,6 +920,25 @@ def main():
              **{k: fused_main[k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by")},
              gates=fused),
+        dict(name="tiled_momentum", route="cuda",
+             source="sr_for_cfd_tpu_torch/csrc/tiled_momentum.cu",
+             replaces="sr_for_cfd_tpu/ops/pallas_momentum.py:222",
+             library_ms=None, **launches("tiled_momentum"),
+             **big_rows["tiled_momentum"],
+             gates=[g for g in big_gates if g["gate"].startswith("tiled")]),
+        dict(name="stream_pass_a", route="cuda",
+             source="sr_for_cfd_tpu_torch/csrc/stream_mg.cu",
+             replaces="sr_for_cfd_tpu/ops/pallas_stream.py:168",
+             library_ms=None, **launches("stream_pass_a"), **big_rows["stream_pass_a"],
+             gates=[g for g in big_gates if g["gate"].startswith("stream")]),
+        dict(name="stream_pass_b", route="cuda",
+             source="sr_for_cfd_tpu_torch/csrc/mg_vcycle.cu",
+             replaces="sr_for_cfd_tpu/ops/pallas_stream.py:332",
+             library_ms=None, **launches("stream_pass_b"), **big_rows["stream_pass_b"]),
+        dict(name="stream_level1_correction", route="cuda",
+             source="sr_for_cfd_tpu_torch/csrc/mg_vcycle.cu",
+             replaces="sr_for_cfd_tpu/ops/pallas_stream.py:298",
+             library_ms=None, **launches("stream_level1"), **big_rows["stream_level1"]),
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -4,8 +4,9 @@ PyTorch-port counterpart of `sr_for_cfd_tpu/config.py`. The dataclasses,
 presets, `SolverSettings` validation and `CaseConfig.build` keep the JAX
 package's names, defaults and semantics, so a case built here describes the
 same flow as one built there, and both refuse the same configurations
-(the TPU VMEM gate of `CaseConfig.build` included, with its message). One
-thing differs:
+with the same `ValueError` texts (the TPU VMEM gate of `CaseConfig.build`
+included: the port mirrors the JAX package's TPU limits as refusals, so
+that both accept the same set). One thing differs:
 
 * Settings whose kernels this port does not have yet raise
   `NotImplementedError` naming the ROADMAP item that will port them,
@@ -25,9 +26,11 @@ NEUMANN = "neumann"
 QUICK = "QUICK"
 UPWIND = "UPWIND"
 
-# Interior-cell count past which the JAX package streams its multigrid
-# through VMEM in row slabs (the "big-grid Pallas branch"). This port has
-# no streamed kernels yet, so use_pallas past it is refused.
+# Interior-cell count past which use_pallas takes the big-grid kernel path
+# (solver/simple.py: the tiled momentum kernel and the streamed V-cycle).
+# The JAX package draws the line here because its resident V-cycle kernel
+# outgrows the TPU's VMEM; the port keeps the line so that both packages
+# route, count and refuse alike.
 STREAM_MG_CELL_THRESHOLD = 1_350_000
 
 
@@ -162,7 +165,11 @@ class SolverSettings:
     `use_pallas=True` keeps its name so that the two packages take the same
     keyword arguments; here it selects the hand-written CUDA pressure
     kernels (`ops/pressure_kernels.py` for 'sweeps', `ops/mg_kernels.py`
-    for 'multigrid'). `fused_step=True` runs every outer step, or
+    for 'multigrid'); with forced slab rows or past
+    STREAM_MG_CELL_THRESHOLD cells (`big_grid_kernels`) the momentum solves
+    take the tiled momentum kernel (`ops/momentum_kernels.py`) and the
+    multigrid pressure the streamed V-cycle (`ops/stream_kernels.py`), as
+    in the JAX package. `fused_step=True` runs every outer step, or
     `steps_per_kernel` of them per launch, through the whole-step kernel
     (`ops/step_kernels.py`). On a CPU tensor each wrapper runs its plain
     PyTorch version, which is how the tests reach them.
@@ -213,26 +220,38 @@ class SolverSettings:
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"Unknown dtype {self.dtype!r}")
         if self.rre_every > 0 and self.rre_depth < 2:
-            raise ValueError("rre_depth must be >= 2")
-        if self.rre_every > 0 and self.chunk_size < self.rre_every * (
-                self.rre_depth + 1):
-            # the snapshot buffer is chunk-local (solver/simple.py
-            # run_chunk): a shorter chunk would never jump
             raise ValueError(
-                f"rre_every={self.rre_every} with rre_depth="
-                f"{self.rre_depth} needs chunk_size >= "
-                f"{self.rre_every * (self.rre_depth + 1)}")
+                "rre_depth must be >= 2 (scalar Aitken cannot cancel the "
+                "oscillatory error modes these flows produce; see "
+                "ops/extrapolate.py)"
+            )
+        if self.rre_every > 0:
+            cycle = self.rre_every * (self.rre_depth + 1)
+            if self.chunk_size < cycle:
+                # the snapshot buffer is chunk-local (solver/simple.py
+                # run_chunk): a shorter chunk would never jump
+                raise ValueError(
+                    f"rre_every={self.rre_every} with rre_depth="
+                    f"{self.rre_depth} needs rre_every*(rre_depth+1)="
+                    f"{cycle} iterations per chunk to fire, but "
+                    f"chunk_size={self.chunk_size}; raise chunk_size "
+                    "(RRE targets long single-dispatch solves) or lower "
+                    "rre_every/rre_depth"
+                )
         if self.steps_per_kernel < 1:
             raise ValueError("steps_per_kernel must be >= 1")
         if self.steps_per_kernel > 1:
             if not self.fused_step:
                 raise ValueError(
-                    "steps_per_kernel > 1 requires fused_step=True")
+                    "steps_per_kernel > 1 requires fused_step=True (it is "
+                    "a property of the fused Pallas kernel)"
+                )
             if self.convergence_hold > 1:
                 raise ValueError(
                     "steps_per_kernel > 1 is incompatible with "
                     "convergence_hold > 1 (the hold counts per-iteration "
-                    "crossings, which a multi-step kernel cannot observe)")
+                    "crossings, which a multi-step kernel cannot observe)"
+                )
             # detector checks run once per launch and fire on exact
             # multiples of their cadence
             cadences = [("chunk_size", self.chunk_size)]
@@ -248,33 +267,49 @@ class SolverSettings:
                     raise ValueError(
                         f"steps_per_kernel={self.steps_per_kernel} must "
                         f"divide {name}={v} (detector checks run once per "
-                        "kernel launch and fire on exact multiples)")
+                        "kernel launch and fire on exact multiples)"
+                    )
         if self.mg_slab_rows < 0 or self.mg_slab_rows % 16:
             raise ValueError(
-                "mg_slab_rows must be 0 (auto) or a positive multiple of 16")
+                "mg_slab_rows must be 0 (auto) or a positive multiple of "
+                "16 (keeps the streamed kernel's restrict/prolong slice "
+                "offsets (i-1)*R/2 sublane-aligned for Mosaic)"
+            )
         if self.mg_slab_rows > 0 and not (
                 self.pressure_solver == "multigrid" and self.use_pallas):
             raise ValueError(
-                "mg_slab_rows applies to the kernel multigrid pressure "
-                "path only (pressure_solver='multigrid', use_pallas=True)")
+                "mg_slab_rows applies to the Pallas multigrid pressure "
+                "path only (pressure_solver='multigrid', use_pallas=True)"
+            )
         if self.mg_slab_rows > 0 and self.fused_step:
             raise ValueError(
                 "mg_slab_rows (streamed multigrid) is incompatible with "
-                "fused_step: the fused whole-step kernel is VMEM-resident")
+                "fused_step: the fused whole-step kernel is VMEM-resident"
+            )
         if self.pressure_solver == "tiled" and self.dtype != "float32":
-            raise ValueError("pressure_solver='tiled' is float32-only")
+            raise ValueError(
+                "pressure_solver='tiled' is float32-only (Pallas kernel); "
+                "use 'sweeps' or 'multigrid' for float64"
+            )
         for flag in ("fused_step", "use_pallas"):
             if not getattr(self, flag):
                 continue
             bad = []
             if self.dtype != "float32":
-                bad.append(f"dtype={self.dtype!r} (the kernels are float32)")
-            if self.pressure_solver not in ("sweeps", "multigrid"):
-                bad.append(f"pressure_solver={self.pressure_solver!r}")
+                bad.append(f"dtype={self.dtype!r} (Pallas kernels are float32)")
+            allowed = ("sweeps", "multigrid")
+            if self.pressure_solver not in allowed:
+                bad.append(
+                    f"pressure_solver={self.pressure_solver!r} (with "
+                    f"{flag}, only {' / '.join(map(repr, allowed))} have "
+                    "a fused Pallas kernel)"
+                )
             if bad:
                 raise ValueError(
-                    f"{flag}=True is incompatible with " + " and ".join(bad)
-                    + f"; drop {flag} or the conflicting option")
+                    f"{flag}=True is incompatible with "
+                    + " and ".join(bad)
+                    + f"; drop {flag} or the conflicting option"
+                )
 
     @staticmethod
     def make(
@@ -308,6 +343,15 @@ class SolverSettings:
         return dict(self.relaxation_factors)[var]
 
 
+def big_grid_kernels(settings: SolverSettings, mesh: MeshParameters) -> bool:
+    """The JAX package's `big_grid_pallas` rule: use_pallas with forced
+    slab rows or past STREAM_MG_CELL_THRESHOLD interior cells takes the
+    tiled momentum kernel and the streamed V-cycle."""
+    return settings.use_pallas and (
+        settings.mg_slab_rows > 0
+        or mesh.nx * mesh.ny > STREAM_MG_CELL_THRESHOLD)
+
+
 def refuse_unported(settings: SolverSettings, mesh: MeshParameters) -> None:
     """Raise NotImplementedError for settings whose kernels or modules this
     port does not have yet, naming the ROADMAP item that ports them."""
@@ -316,13 +360,6 @@ def refuse_unported(settings: SolverSettings, mesh: MeshParameters) -> None:
         unported.append(
             "pressure_solver='tiled' (the slab-streamed sweep kernel: "
             "ROADMAP queue B, row 5)")
-    if settings.use_pallas and (
-            settings.mg_slab_rows > 0
-            or mesh.nx * mesh.ny > STREAM_MG_CELL_THRESHOLD):
-        unported.append(
-            "use_pallas past the big-grid threshold or with mg_slab_rows "
-            "(the streamed momentum and multigrid kernels: ROADMAP queue "
-            "B, rows 4 and 6-8)")
     if settings.spmd_devices > 1:
         unported.append(
             "spmd_devices>1 (the sharded solver parallel/: ROADMAP queue "
@@ -372,6 +409,22 @@ class CaseConfig:
                     f"~{est / 2**20:.0f} MiB of VMEM (>100 MiB budget). Use "
                     "pressure_solver='multigrid' (use_pallas streams it "
                     "through VMEM at any size) for grids beyond ~900^2.")
+        if settings.use_pallas and settings.pressure_solver == "multigrid":
+            # the streamed V-cycle's own constraints, surfaced at config
+            # time instead of the first pressure solve
+            streams = big_grid_kernels(settings, mesh)
+            if streams and (mesh.nx % 2 or mesh.ny % 2):
+                raise ValueError(
+                    "use_pallas + multigrid past the VMEM wall streams "
+                    f"the V-cycle, which needs even nx, ny (got {mesh.nx}"
+                    f"x{mesh.ny}); drop use_pallas or use an even grid"
+                )
+            if streams and (settings.mg_n_pre < 1 or settings.mg_n_post < 1):
+                raise ValueError(
+                    "the slab-streamed V-cycle needs mg_n_pre >= 1 and "
+                    "mg_n_post >= 1 (its entry-residual RMS and halo "
+                    "widths are built from the smoothing sweeps)"
+                )
         refuse_unported(settings, mesh)
         return cls(
             mesh=mesh,

@@ -1,4 +1,4 @@
-// Shared helpers of the pressure kernels (rb_sor.cu, mg_vcycle.cu).
+// Shared helpers of the kernels in this directory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,4 +22,10 @@ __device__ __forceinline__ float srcfd_block_sum(float v, float* sh) {
   const float total = sh[0];
   __syncthreads();  // sh may be written again right after the return
   return total;
+}
+
+// Launch grid of SRCFD_TX x SRCFD_TY blocks covering a (rows, cols) array,
+// cols contiguous.
+static inline dim3 srcfd_grid(int rows, int cols) {
+  return dim3((cols + SRCFD_TX - 1) / SRCFD_TX, (rows + SRCFD_TY - 1) / SRCFD_TY);
 }

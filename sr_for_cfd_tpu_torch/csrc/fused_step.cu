@@ -39,6 +39,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "momentum.cuh"
 
 // Mirrored field by field by ops/step_kernels.py:StepParams (ctypes); every
 // field is 4 bytes, so the two layouts agree without padding.
@@ -59,54 +60,6 @@ struct StepParams {
   float bc_twice[12];  // 0 Dirichlet (ghost = 2 value - inside), 1 Neumann
   int bfs;             // the BFS inlet overrides the left ghosts of u, v
 };
-
-// momentum residual r = -(volp/dt (f - f0) + Fc - nu Fd) at padded (i, j),
-// with the fluxes at fidx; *ap_out = volp/dt + ap_c - nu ap_d
-__device__ __forceinline__ float mom_residual(
-    const float* __restrict__ f, const float* __restrict__ f0,
-    const float* __restrict__ fe_a, const float* __restrict__ fn_a,
-    const float* __restrict__ fw_a, const float* __restrict__ fs_a, int i,
-    int j, int fidx, float nu, const StepParams& c, float* ap_out) {
-  const int ny2 = c.ny2, nx = c.nx2 - 2, ny = c.ny2 - 2;
-  const int idx = i * ny2 + j;
-  const float F = f[idx];
-  const float e = f[idx + ny2], w = f[idx - ny2];
-  const float n = f[idx + 1], s = f[idx - 1];
-  const float fe = fe_a[fidx], fn = fn_a[fidx], fw = fw_a[fidx], fs = fs_a[fidx];
-  const bool pe = fe >= 0.0f, pw = fw >= 0.0f, pn = fn >= 0.0f, ps = fs >= 0.0f;
-  float ue, uw, un, us, sum_flux;
-  if (c.quick) {
-    // far neighbours clamped at the first and last interior lines
-    const float ee = i == nx ? e : f[idx + 2 * ny2];
-    const float ww = i == 1 ? w : f[idx - 2 * ny2];
-    const float nn = j == ny ? n : f[idx + 2];
-    const float ss = j == 1 ? s : f[idx - 2];
-    ue = pe ? (0.75f * F + 0.375f * e) - 0.125f * w
-            : (0.75f * e + 0.375f * F) - 0.125f * ee;
-    uw = pw ? (0.75f * F + 0.375f * w) - 0.125f * e
-            : (0.75f * w + 0.375f * F) - 0.125f * ww;
-    un = pn ? (0.75f * F + 0.375f * n) - 0.125f * s
-            : (0.75f * n + 0.375f * F) - 0.125f * nn;
-    us = ps ? (0.75f * F + 0.375f * s) - 0.125f * n
-            : (0.75f * s + 0.375f * F) - 0.125f * ss;
-    sum_flux = (((pe ? 0.75f : 0.375f) * fe + (pw ? 0.75f : 0.375f) * fw) +
-                (pn ? 0.75f : 0.375f) * fn) +
-               (ps ? 0.75f : 0.375f) * fs;
-  } else {
-    ue = pe ? F : e;
-    uw = pw ? F : w;
-    un = pn ? F : n;
-    us = ps ? F : s;
-    sum_flux = (((pe ? fe : 0.0f) + (pw ? fw : 0.0f)) + (pn ? fn : 0.0f)) +
-               (ps ? fs : 0.0f);
-  }
-  const float fc = ((ue * fe + uw * fw) + un * fn) + us * fs;
-  const float ap_c = sum_flux * c.volp;
-  const float fd = c.volp * (((e - 2.0f * F) + w) * c.inv_dx2 +
-                             ((n - 2.0f * F) + s) * c.inv_dy2);
-  *ap_out = (c.volp_dt + ap_c) - nu * c.ap_d;
-  return -((c.volp_dt * (F - f0[idx]) + fc) - nu * fd);
-}
 
 // pressure residual b - volp Laplacian(p) at padded index idx
 __device__ __forceinline__ float p_residual(const float* __restrict__ p,
@@ -197,7 +150,7 @@ __device__ int block_momentum(float* f, const float* f0, const float* fe,
           if (((i + j) & 1) != color) continue;
           const int idx = i * c.ny2 + j;
           float ap;
-          const float r = mom_residual(f, f0, fe, fn, fw, fs, i, j, idx, nu, c, &ap);
+          const float r = srcfd_mom_residual(f, f0[idx], fe, fn, fw, fs, i, j, idx, nu, c, &ap);
           sr[idx] = r / ap;
           if (last) acc += r * r;
         }
@@ -406,39 +359,6 @@ step_small_kernel(const float* __restrict__ u_g, const float* __restrict__ v_g,
 
 // ---- design (b): one launch per stage ----------------------------------
 
-// one red-black momentum half-sweep, src -> dst over the whole padded
-// field (cells of the other colour and the ghosts are copied); fluxes
-// interior-shaped; partials[block] = sum of r^2 over the block's cells
-__global__ void __launch_bounds__(SRCFD_THREADS)
-step_mom_half_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                     const float* __restrict__ f0, const float* __restrict__ fe,
-                     const float* __restrict__ fn, const float* __restrict__ fw,
-                     const float* __restrict__ fs, const float* __restrict__ nu_g,
-                     StepParams c, int color, float* __restrict__ partials) {
-  __shared__ float sh[SRCFD_THREADS];
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  const int nx = c.nx2 - 2, ny = c.ny2 - 2;
-  float r2 = 0.0f;
-  if (i < c.nx2 && j < c.ny2) {
-    const int idx = i * c.ny2 + j;
-    float out = src[idx];
-    if (i >= 1 && i <= nx && j >= 1 && j <= ny && ((i + j) & 1) == color) {
-      float ap;
-      const float r = mom_residual(src, f0, fe, fn, fw, fs, i, j,
-                                   (i - 1) * ny + (j - 1), nu_g[0], c, &ap);
-      out = out + r / ap;
-      r2 = r * r;
-    }
-    dst[idx] = out;
-  }
-  if (partials != nullptr) {  // uniform over the launch
-    const float s = srcfd_block_sum(r2, sh);
-    if (threadIdx.x == 0 && threadIdx.y == 0)
-      partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
-  }
-}
-
 __global__ void __launch_bounds__(SRCFD_THREADS)
 step_relax_kernel(float* __restrict__ f, const float* __restrict__ f0, int nx2,
                   int ny2, float alpha) {
@@ -526,10 +446,6 @@ step_sums_kernel(const float* __restrict__ partials, int n, float* __restrict__ 
   }
 }
 
-static dim3 grid2s(int rows, int cols) {
-  return dim3((cols + SRCFD_TX - 1) / SRCFD_TX, (rows + SRCFD_TY - 1) / SRCFD_TY);
-}
-
 static size_t small_smem_bytes(int nx2, int ny2) {
   return (12 * (size_t)nx2 * ny2 + 2 * (size_t)ny2) * sizeof(float);
 }
@@ -567,13 +483,13 @@ int srcfd_step_small(const float* u, const float* v, const float* p,
 
 // number of partial sums one momentum half-sweep writes
 int srcfd_step_mom_partials(int nx2, int ny2) {
-  const dim3 g = grid2s(nx2, ny2);
+  const dim3 g = srcfd_grid(nx2, ny2);
   return (int)(g.x * g.y);
 }
 
 // number of partial sums (per quantity) the projection writes
 int srcfd_step_proj_partials(int nx2, int ny2) {
-  const dim3 g = grid2s(nx2 - 2, ny2 - 2);
+  const dim3 g = srcfd_grid(nx2 - 2, ny2 - 2);
   return (int)(g.x * g.y);
 }
 
@@ -581,15 +497,16 @@ int srcfd_step_mom_half(const float* src, float* dst, const float* f0,
                         const float* fe, const float* fn, const float* fw,
                         const float* fs, const float* nu, const StepParams* c,
                         int color, float* partials, void* stream) {
-  step_mom_half_kernel<<<grid2s(c->nx2, c->ny2), dim3(SRCFD_TX, SRCFD_TY), 0,
-                         (cudaStream_t)stream>>>(src, dst, f0, fe, fn, fw, fs,
-                                                 nu, *c, color, partials);
+  srcfd_mom_half_kernel<StepParams, true>
+      <<<srcfd_grid(c->nx2, c->ny2), dim3(SRCFD_TX, SRCFD_TY), 0,
+         (cudaStream_t)stream>>>(src, dst, f0, fe, fn, fw, fs, nu, *c, color,
+                                 partials);
   return (int)cudaGetLastError();
 }
 
 int srcfd_step_relax(float* f, const float* f0, int nx2, int ny2, float alpha,
                      void* stream) {
-  step_relax_kernel<<<grid2s(nx2 - 2, ny2 - 2), dim3(SRCFD_TX, SRCFD_TY), 0,
+  step_relax_kernel<<<srcfd_grid(nx2 - 2, ny2 - 2), dim3(SRCFD_TX, SRCFD_TY), 0,
                       (cudaStream_t)stream>>>(f, f0, nx2, ny2, alpha);
   return (int)cudaGetLastError();
 }
@@ -604,7 +521,7 @@ int srcfd_step_bc(float* f, int var, const float* u_in, const float* below,
 
 int srcfd_step_fluxes(const float* u, const float* v, float* fe, float* fn,
                       float* fw, float* fs, const StepParams* c, void* stream) {
-  step_fluxes_kernel<<<grid2s(c->nx2 - 2, c->ny2 - 2), dim3(SRCFD_TX, SRCFD_TY),
+  step_fluxes_kernel<<<srcfd_grid(c->nx2 - 2, c->ny2 - 2), dim3(SRCFD_TX, SRCFD_TY),
                        0, (cudaStream_t)stream>>>(u, v, fe, fn, fw, fs, *c);
   return (int)cudaGetLastError();
 }
@@ -613,7 +530,7 @@ int srcfd_step_project(float* u, float* v, const float* p, const float* u0,
                        const float* v0, const float* p0, float* fe, float* fn,
                        float* fw, float* fs, float* partials, const StepParams* c,
                        void* stream) {
-  step_project_kernel<<<grid2s(c->nx2 - 2, c->ny2 - 2), dim3(SRCFD_TX, SRCFD_TY),
+  step_project_kernel<<<srcfd_grid(c->nx2 - 2, c->ny2 - 2), dim3(SRCFD_TX, SRCFD_TY),
                         0, (cudaStream_t)stream>>>(u, v, p, u0, v0, p0, fe, fn,
                                                    fw, fs, *c, partials);
   return (int)cudaGetLastError();

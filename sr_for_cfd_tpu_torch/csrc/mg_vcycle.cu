@@ -32,20 +32,7 @@
 // max_cycles, which the wrapper passes in.
 
 #include "common.cuh"
-
-// volp-scaled 5-point Laplacian of an interior-shaped (n, m) level with a
-// homogeneous-Dirichlet exterior, at (i, j); m is the contiguous axis
-__device__ __forceinline__ float mg_lap(const float* __restrict__ x, int i,
-                                        int j, int n, int m, float inv_dx2,
-                                        float inv_dy2, float volp) {
-  const int idx = i * m + j;
-  const float c = x[idx];
-  const float e = i + 1 < n ? x[idx + m] : 0.0f;
-  const float w = i > 0 ? x[idx - m] : 0.0f;
-  const float no = j + 1 < m ? x[idx + 1] : 0.0f;
-  const float so = j > 0 ? x[idx - 1] : 0.0f;
-  return volp * ((e - 2.0f * c + w) * inv_dx2 + (no - 2.0f * c + so) * inv_dy2);
-}
+#include "mg_ops.cuh"
 
 __global__ void __launch_bounds__(SRCFD_THREADS)
 mg_smooth_half_kernel(float* __restrict__ x, const float* __restrict__ b, int n,
@@ -85,6 +72,7 @@ mg_residual_kernel(const float* __restrict__ x, const float* __restrict__ b,
 //         (zero outside), times 1/7 on the two boundary rows, 1/8 elsewhere
 // mode 2: exact-2x prolongation, out[2k] = 0.75 in[k] + 0.25 in[k-1],
 //         out[2k+1] = 0.75 in[k] + 0.25 in[k+1] (edge-replicated)
+// mode 3: rows kept, out[I, j] = in[I, j]
 // then out = v * scale, or out += v * scale with accumulate
 __global__ void __launch_bounds__(SRCFD_THREADS)
 mg_row_transfer_kernel(const float* __restrict__ in, float* __restrict__ out,
@@ -108,6 +96,8 @@ mg_row_transfer_kernel(const float* __restrict__ in, float* __restrict__ out,
     const int k = I >> 1;
     const int nb = (I & 1) ? min(k + 1, n_in - 1) : max(k - 1, 0);
     v = 0.75f * in[k * m + j] + 0.25f * in[nb * m + j];
+  } else if (mode == 3) {
+    v = in[I * m + j];
   } else {
     float acc = 0.0f;
     const int end = hi[I];
@@ -138,22 +128,18 @@ mg_col_transfer_kernel(const float* __restrict__ in, float* __restrict__ out,
   out[o] = accumulate ? out[o] + v : v;
 }
 
-static dim3 grid2(int rows, int cols) {
-  return dim3((cols + SRCFD_TX - 1) / SRCFD_TX, (rows + SRCFD_TY - 1) / SRCFD_TY);
-}
-
 extern "C" {
 
 // number of partial sums mg_residual writes for an (n, m) level
 int srcfd_mg_partials(int n, int m) {
-  const dim3 g = grid2(n, m);
+  const dim3 g = srcfd_grid(n, m);
   return (int)(g.x * g.y);
 }
 
 int srcfd_mg_smooth_half(float* x, const float* b, int n, int m, float inv_dx2,
                          float inv_dy2, float volp, float inv_ap, int color,
                          void* stream) {
-  mg_smooth_half_kernel<<<grid2(n, m), dim3(SRCFD_TX, SRCFD_TY), 0,
+  mg_smooth_half_kernel<<<srcfd_grid(n, m), dim3(SRCFD_TX, SRCFD_TY), 0,
                           (cudaStream_t)stream>>>(x, b, n, m, inv_dx2, inv_dy2,
                                                   volp, inv_ap, color);
   return (int)cudaGetLastError();
@@ -162,7 +148,7 @@ int srcfd_mg_smooth_half(float* x, const float* b, int n, int m, float inv_dx2,
 int srcfd_mg_residual(const float* x, const float* b, float* r_out,
                       float* partials, int n, int m, float inv_dx2,
                       float inv_dy2, float volp, void* stream) {
-  mg_residual_kernel<<<grid2(n, m), dim3(SRCFD_TX, SRCFD_TY), 0,
+  mg_residual_kernel<<<srcfd_grid(n, m), dim3(SRCFD_TX, SRCFD_TY), 0,
                        (cudaStream_t)stream>>>(x, b, r_out, partials, n, m,
                                                inv_dx2, inv_dy2, volp);
   return (int)cudaGetLastError();
@@ -172,7 +158,7 @@ int srcfd_mg_row_transfer(const float* in, float* out, int n_in, int n_out,
                           int m, int mode, const float* mat, const int* lo,
                           const int* hi, float scale, int accumulate,
                           void* stream) {
-  mg_row_transfer_kernel<<<grid2(n_out, m), dim3(SRCFD_TX, SRCFD_TY), 0,
+  mg_row_transfer_kernel<<<srcfd_grid(n_out, m), dim3(SRCFD_TX, SRCFD_TY), 0,
                            (cudaStream_t)stream>>>(in, out, n_in, n_out, m,
                                                    mode, mat, lo, hi, scale,
                                                    accumulate);
@@ -183,7 +169,7 @@ int srcfd_mg_col_transfer(const float* in, float* out, int n, int m_in,
                           int m_out, const float* mat_t, const int* lo,
                           const int* hi, float scale, int accumulate,
                           void* stream) {
-  mg_col_transfer_kernel<<<grid2(n, m_out), dim3(SRCFD_TX, SRCFD_TY), 0,
+  mg_col_transfer_kernel<<<srcfd_grid(n, m_out), dim3(SRCFD_TX, SRCFD_TY), 0,
                            (cudaStream_t)stream>>>(in, out, n, m_in, m_out,
                                                    mat_t, lo, hi, scale,
                                                    accumulate);

@@ -32,9 +32,17 @@
 
 #include "common.cuh"
 
+// divide = 0: p += (sor r) * (1 / ap_d), as the standalone TPU kernel
+// (pallas_kernels.py) does; divide = 1: p += (sor r) / ap_d, as the
+// point-iteration pressure stage of the fused step (pallas_step.py:309)
 struct RbCoef {
-  float inv_dx2, inv_dy2, volp, sor, inv_ap;
+  float inv_dx2, inv_dy2, volp, sor, inv_ap, ap_d;
+  int divide;
 };
+
+__device__ __forceinline__ float rb_step(float r, const RbCoef& c) {
+  return c.divide ? (c.sor * r) / c.ap_d : c.sor * r * c.inv_ap;
+}
 
 // unified stall policy (ops/sweeps.py: stall_update / stalled)
 struct StallPolicy {
@@ -63,7 +71,7 @@ rb_half_sweep_kernel(float* __restrict__ p, const float* __restrict__ b,
   if (i <= nx2 - 2 && j <= ny2 - 2 && ((i + j) & 1) == color) {
     const int idx = i * ny2 + j;
     const float r = rb_residual(p, b, idx, ny2, c);
-    p[idx] = p[idx] + c.sor * r * c.inv_ap;
+    p[idx] = p[idx] + rb_step(r, c);
     r2 = r * r;
   }
   if (with_rms) {  // uniform over the block
@@ -118,7 +126,7 @@ rb_sor_loop_small_kernel(float* __restrict__ p_g, const float* __restrict__ b_g,
           if (((i + j) & 1) != color) continue;
           const int idx = i * ny2 + j;
           const float r = rb_residual(p, b, idx, ny2, c);
-          p[idx] = p[idx] + c.sor * r * c.inv_ap;
+          p[idx] = p[idx] + rb_step(r, c);
           if (last) acc += r * r;
         }
         __syncthreads();
@@ -161,9 +169,9 @@ int srcfd_rb_small_max_cells(void) {
 
 int srcfd_rb_half_sweep(float* p, const float* b, float* partials, int nx2,
                         int ny2, float inv_dx2, float inv_dy2, float volp,
-                        float sor, float inv_ap, int color, int with_rms,
-                        void* stream) {
-  const RbCoef c{inv_dx2, inv_dy2, volp, sor, inv_ap};
+                        float sor, float inv_ap, float ap_d, int divide,
+                        int color, int with_rms, void* stream) {
+  const RbCoef c{inv_dx2, inv_dy2, volp, sor, inv_ap, ap_d, divide};
   rb_half_sweep_kernel<<<rb_grid(nx2, ny2), dim3(SRCFD_TX, SRCFD_TY), 0,
                          (cudaStream_t)stream>>>(p, b, partials, nx2, ny2, c,
                                                  color, with_rms);
@@ -179,12 +187,13 @@ int srcfd_rms_finalize(const float* partials, int n, float n_cells, float* out,
 
 int srcfd_rb_sor_loop_small(float* p, const float* b, int nx2, int ny2,
                             float inv_dx2, float inv_dy2, float volp, float sor,
-                            float inv_ap, float stall_reset_ratio,
+                            float inv_ap, float ap_d, int divide,
+                            float stall_reset_ratio,
                             float stall_ratio, int stall_patience,
                             int stall_min_checks, float tol, int max_iter,
                             int check_every, int* count_out, float* rms_out,
                             void* stream) {
-  const RbCoef c{inv_dx2, inv_dy2, volp, sor, inv_ap};
+  const RbCoef c{inv_dx2, inv_dy2, volp, sor, inv_ap, ap_d, divide};
   const StallPolicy sp{stall_reset_ratio, stall_ratio, stall_patience,
                        stall_min_checks};
   const size_t smem = 2 * (size_t)nx2 * ny2 * sizeof(float);

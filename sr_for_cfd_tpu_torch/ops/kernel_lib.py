@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (`csrc/*.cu`).
 
-One `nvcc` call compiles every source into `_build/libsrcfd_kernels.so`, a
+One `nvcc` per source, all started together, compiles `csrc/*.cu` to
+objects, and one more links them into `_build/libsrcfd_kernels.so`, a
 shared library with a plain C interface, which is loaded with `ctypes`.
 The build runs at first use, takes seconds, and is skipped while the
 library is newer than every source. Nothing here runs at import time, so
@@ -29,7 +30,7 @@ LIB_PATH = BUILD_DIR / "libsrcfd_kernels.so"
 # operation by operation as its plain PyTorch version does (explicit
 # fmaf() calls stay fused)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,12 +39,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "srcfd_rb_partials": (_I, [_I, _I]),
     "srcfd_rb_small_max_cells": (_I, []),
-    "srcfd_rb_half_sweep": (_I, [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I,
-                                 _I, _P]),
+    "srcfd_rb_half_sweep": (_I, [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F,
+                                 _I, _I, _I, _P]),
     "srcfd_rms_finalize": (_I, [_P, _I, _F, _P, _P]),
     "srcfd_rb_sor_loop_small": (_I, [_P, _P, _I, _I, _F, _F, _F, _F, _F,
-                                     _F, _F, _I, _I, _F, _I, _I, _P, _P,
-                                     _P]),
+                                     _F, _I, _F, _F, _I, _I, _F, _I, _I,
+                                     _P, _P, _P]),
     "srcfd_mg_partials": (_I, [_I, _I]),
     "srcfd_mg_smooth_half": (_I, [_P, _P, _I, _I, _F, _F, _F, _F, _I, _P]),
     "srcfd_mg_residual": (_I, [_P, _P, _P, _P, _I, _I, _F, _F, _F, _P]),
@@ -61,6 +62,11 @@ SIGNATURES = {
     "srcfd_step_fluxes": (_I, [_P] * 8),
     "srcfd_step_project": (_I, [_P] * 13),
     "srcfd_step_sums": (_I, [_P, _I, _P, _P]),
+    "srcfd_tm_half": (_I, [_P] * 8 + [_I, _I, _I, _F, _F, _F, _F, _F, _I,
+                                      _P, _P]),
+    "srcfd_sm_entry_half": (_I, [_P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P]),
+    "srcfd_sm_restrict_rows": (_I, [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I,
+                                    _F, _F, _P]),
 }
 
 _lock = threading.Lock()
@@ -99,19 +105,43 @@ def build(force: bool = False, verbose: bool = False) -> float:
     if not force and _up_to_date():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libsrcfd_kernels.{os.getpid()}.tmp.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *map(str, sources())]
+    tag = f"{os.getpid()}.tmp"
+    tmp = BUILD_DIR / f"libsrcfd_kernels.{tag}.so"
+    nvcc = nvcc_path()
+    extra = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    report, failed = [], None
+    for cmd, _, proc in jobs:
+        try:
+            out, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        report.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd, out)
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failed is not None:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{' '.join(failed[1])}\n"
+                               f"{failed[2]}")
+        cmd = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
+        print("".join(report), flush=True)
     os.replace(tmp, LIB_PATH)  # atomic: a concurrent build never sees half a file
     return time.perf_counter() - t0
 

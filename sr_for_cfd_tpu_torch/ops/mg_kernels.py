@@ -34,7 +34,8 @@ from .multigrid import (
 from .stencil import FaceFluxes
 from .sweeps import stall_update, stalled
 
-ROW_BAND, ROW_RESTRICT_2X, ROW_PROLONG_2X = 0, 1, 2
+# row transfer modes of mg_vcycle.cu's mg_row_transfer
+ROW_BAND, ROW_RESTRICT_2X, ROW_PROLONG_2X, ROW_COPY = 0, 1, 2, 3
 
 
 class BandMatrix(NamedTuple):
@@ -100,46 +101,69 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-class _Cycle:
-    """Device buffers and launches for one pressure solve."""
+def launch(counter, code: int, what: str) -> None:
+    """Raise on a launch error, else count one launch on `counter` (the
+    wrapper whose `.launches` it is)."""
+    kernel_lib.check(code, what)
+    counter.launches += 1
 
-    def __init__(self, plan: MGPlan, x0: torch.Tensor, b0: torch.Tensor,
-                 n_pre, n_post, sor, coarsest_sweeps):
+
+def smooth_halves(lib, stream, counter, x, b, n, m, inv_dx2, inv_dy2, volp,
+                  inv_ap, n_sweeps) -> None:
+    """n_sweeps in-place red-black sweeps of the (n, m) level x (pointers)."""
+    for _ in range(n_sweeps):
+        for color in (0, 1):
+            launch(counter, lib.srcfd_mg_smooth_half(
+                x, b, n, m, inv_dx2, inv_dy2, volp, inv_ap, color, stream),
+                "mg_smooth_half")
+
+
+class _Cycle:
+    """Device buffers and launches of V-cycles entered at level `top`:
+    x_top and b_top are that level's arrays; levels above it get no
+    buffers."""
+
+    def __init__(self, plan: MGPlan, x_top: torch.Tensor, b_top: torch.Tensor,
+                 n_pre, n_post, sor, coarsest_sweeps, counter=None, top=0):
+        # the wrapper whose `.launches` counts this cycle's launches
+        self.counter = counter or mg_solve_pressure_kernel
         self.plan = plan
         self.setup = plan.setup
         self.n_pre, self.n_post, self.sor = n_pre, n_post, sor
         self.coarsest_sweeps = coarsest_sweeps
         self.lib = kernel_lib.load_library()
-        self.stream = kernel_lib.stream_ptr(x0.device)
+        self.stream = kernel_lib.stream_ptr(x_top.device)
         sizes = self.setup.sizes
-        dev = x0.device
+        dev = x_top.device
         f32 = torch.float32
-        self.x = [x0] + [torch.empty(s, dtype=f32, device=dev) for s in sizes[1:]]
-        self.b = [b0] + [torch.empty(s, dtype=f32, device=dev) for s in sizes[1:]]
-        self.r = [torch.empty(s, dtype=f32, device=dev) for s in sizes[:-1]]
+        above = [None] * top
+        self.x = above + [x_top] + [torch.empty(s, dtype=f32, device=dev)
+                                    for s in sizes[top + 1:]]
+        self.b = above + [b_top] + [torch.empty(s, dtype=f32, device=dev)
+                                    for s in sizes[top + 1:]]
+        self.r = above + [torch.empty(s, dtype=f32, device=dev)
+                          for s in sizes[top:-1]]
         # (coarse rows, fine cols) scratch between the row and column passes
-        self.tmp = [torch.empty((sizes[l + 1][0], sizes[l][1]), dtype=f32,
-                                device=dev) for l in range(len(sizes) - 1)]
-        n0, m0 = sizes[0]
-        self.n_part = self.lib.srcfd_mg_partials(n0, m0)
-        self.partials = torch.empty(self.n_part, dtype=f32, device=dev)
-        self.rms_dev = torch.empty(1, dtype=f32, device=dev)
+        self.tmp = above + [torch.empty((sizes[l + 1][0], sizes[l][1]),
+                                        dtype=f32, device=dev)
+                            for l in range(top, len(sizes) - 1)]
+        if top == 0:  # fine_rms
+            n0, m0 = sizes[0]
+            self.n_part = self.lib.srcfd_mg_partials(n0, m0)
+            self.partials = torch.empty(self.n_part, dtype=f32, device=dev)
+            self.rms_dev = torch.empty(1, dtype=f32, device=dev)
 
     def _launch(self, code: int, what: str) -> None:
-        kernel_lib.check(code, what)
-        mg_solve_pressure_kernel.launches += 1
+        launch(self.counter, code, what)
 
     def smooth(self, lvl, n_sweeps, omega):
         n, m = self.setup.sizes[lvl]
         inv_dx2, inv_dy2 = self.setup.spacings[lvl]
         volp = self.setup.volp_levels[lvl]
         inv_ap = omega / (-volp * (2.0 * inv_dx2 + 2.0 * inv_dy2))
-        x, b = _ptr(self.x[lvl]), _ptr(self.b[lvl])
-        for _ in range(n_sweeps):
-            for color in (0, 1):
-                self._launch(self.lib.srcfd_mg_smooth_half(
-                    x, b, n, m, inv_dx2, inv_dy2, volp, inv_ap, color,
-                    self.stream), "mg_smooth_half")
+        smooth_halves(self.lib, self.stream, self.counter, _ptr(self.x[lvl]),
+                      _ptr(self.b[lvl]), n, m, inv_dx2, inv_dy2, volp, inv_ap,
+                      n_sweeps)
 
     def residual(self, lvl, r_out, partials):
         n, m = self.setup.sizes[lvl]

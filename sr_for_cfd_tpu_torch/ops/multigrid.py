@@ -90,6 +90,7 @@ class LevelSetup(NamedTuple):
     scales: Tuple[float, ...]
 
 
+@functools.lru_cache(maxsize=32)
 def level_setup(nx, ny, dx, dy, volp, min_size=8) -> LevelSetup:
     sizes = tuple(_levels(nx, ny, dx, dy, min_size=min_size))
     spacings, volp_levels, scales = [], [], []

@@ -11,6 +11,9 @@ On a CPU tensor the wrapper runs the plain PyTorch version,
 TPU kernel's arithmetic (multiply by the reciprocal diagonal and by
 1/dx^2, 1/dy^2, where the jnp sweeps divide), so that near the float32
 floor, where the stall policy decides, it takes the TPU kernel's exits.
+`divide=True` updates with (sor r) / ap_d instead, as the point-iteration
+pressure stage of the TPU's fused step does (`pallas_step.py:309`); the
+fused step's staged design uses it.
 On a CUDA tensor the wrapper launches the kernel or raises.
 `solve_pressure_kernel.launches` counts kernel launches.
 """
@@ -41,19 +44,23 @@ def _coefficients(dx, dy, volp, sor, nx, ny):
     sor = min(sor, optimal_sor(nx, ny))
     inv_dx2 = 1.0 / (dx * dx)
     inv_dy2 = 1.0 / (dy * dy)
-    inv_ap = 1.0 / (-volp * (2.0 * inv_dx2 + 2.0 * inv_dy2))
-    return inv_dx2, inv_dy2, sor, inv_ap
+    ap_d = -volp * (2.0 * inv_dx2 + 2.0 * inv_dy2)
+    return inv_dx2, inv_dy2, sor, 1.0 / ap_d, ap_d
 
 
 def solve_pressure_plain(
     p: torch.Tensor, ff: FaceFluxes, *, dx, dy, dt, rho, volp, tol=1e-6,
-    max_iter=1000, check_every=8, sor=1.0,
+    max_iter=1000, check_every=8, sor=1.0, divide=False,
 ) -> Tuple[torch.Tensor, int]:
     """The kernel's loop in plain PyTorch; returns (p, sweeps_run)."""
     nx, ny = p.shape[0] - 2, p.shape[1] - 2
-    inv_dx2, inv_dy2, sor, inv_ap = _coefficients(dx, dy, volp, sor, nx, ny)
+    inv_dx2, inv_dy2, sor, inv_ap, ap_d = _coefficients(dx, dy, volp, sor,
+                                                        nx, ny)
     b = (rho / dt) * ff.divergence_sum()
     red = checkerboard(nx, ny, p.device)
+    # a tensor, so that the card divides (by a Python scalar it multiplies
+    # by the reciprocal)
+    ap_d_t = torch.tensor(ap_d, dtype=p.dtype, device=p.device)
 
     def half(f, mask):
         c = f[1:-1, 1:-1]
@@ -61,7 +68,8 @@ def solve_pressure_plain(
                      + (f[1:-1, 2:] - 2.0 * c + f[1:-1, :-2]) * inv_dy2)
         r = b - fd
         f = f.clone()
-        f[1:-1, 1:-1] = c + torch.where(mask, sor * r * inv_ap, 0.0)
+        step = sor * r / ap_d_t if divide else sor * r * inv_ap
+        f[1:-1, 1:-1] = c + torch.where(mask, step, 0.0)
         return f, r
 
     t = np_scalar_type(p.dtype)
@@ -99,24 +107,27 @@ def solve_pressure_kernel(
     max_iter: int = 1000,
     check_every: int = 8,
     sor: float = 1.0,
+    divide: bool = False,
 ) -> Tuple[torch.Tensor, int]:
-    """Red-black SOR pressure solve; returns (p, sweeps_run)."""
+    """Red-black SOR pressure solve; returns (p, sweeps_run). `divide`
+    selects the (sor r) / ap_d update (see the module docstring)."""
     if check_every < 1:
         raise ValueError("check_every must be >= 1")
     if p.device.type == "cpu":
         return solve_pressure_plain(
             p, ff, dx=dx, dy=dy, dt=dt, rho=rho, volp=volp, tol=tol,
-            max_iter=max_iter, check_every=check_every, sor=sor)
+            max_iter=max_iter, check_every=check_every, sor=sor,
+            divide=divide)
     kernel_lib.check_field(p, "pressure")
     nx2, ny2 = p.shape
-    inv_dx2, inv_dy2, sor, inv_ap = _coefficients(dx, dy, volp, sor,
-                                                  nx2 - 2, ny2 - 2)
+    inv_dx2, inv_dy2, sor, inv_ap, ap_d = _coefficients(dx, dy, volp, sor,
+                                                        nx2 - 2, ny2 - 2)
     b = torch.zeros_like(p)
     b[1:-1, 1:-1] = (rho / dt) * ff.divergence_sum()
     out = p.clone(memory_format=torch.contiguous_format)
     lib = kernel_lib.load_library()
     stream = kernel_lib.stream_ptr(p.device)
-    coef = (inv_dx2, inv_dy2, volp, sor, inv_ap)
+    coef = (inv_dx2, inv_dy2, volp, sor, inv_ap, ap_d, int(divide))
 
     if nx2 * ny2 <= lib.srcfd_rb_small_max_cells():
         # one block runs the whole loop, stall policy included

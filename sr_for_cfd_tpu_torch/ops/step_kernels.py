@@ -24,8 +24,8 @@ on the 12x12 coarse grid, ~2 MB per sweep at 400x400, inside the L2.
   rms read per check, as the pressure wrappers do. The pressure stage is
   `ops/mg_kernels.py` (multigrid mode: the same frozen-ghost system as
   the TPU kernel's embedded V-cycle) or `ops/pressure_kernels.py` (point
-  iteration, omega clamped as in the TPU kernel; `rb_sor.cu` multiplies by
-  the reciprocal diagonal where `pallas_step.py:309` divides). This is the
+  iteration, omega clamped as in the TPU kernel, and `rb_sor.cu` in its
+  divide form, (sor r) / ap_d, as `pallas_step.py:309`). This is the
   400x400 fine phases, and any point-iteration grid too large for (a).
 No design waits on another block; every loop is bounded by K, max_iter,
 MG_MAX_CYCLES or a size.
@@ -140,22 +140,28 @@ def _plain_one_step(u0, v0, p0, ff, case: CaseConfig, profile, nu):
             coarsest_sweeps=st.mg_coarsest_sweeps)
     else:
         b = (rho / dt) * ff.divergence_sum()
+        # a tensor on the field's device: PyTorch's CUDA division by a
+        # Python scalar multiplies by its reciprocal, by a tensor it divides
+        ap_d_t = torch.tensor(ap_d, dtype=p0.dtype, device=p0.device)
 
         def residual(f):
-            return b - _laplacian(f, volp, inv_dx2, inv_dy2), ap_d
+            return b - _laplacian(f, volp, inv_dx2, inv_dy2), ap_d_t
 
         p, p_it = sweep_loop(p0, residual, check_every=max(1, st.pressure_check_every),
                              sor=sor, **loop)
     p = under_relax(p, p0[1:-1, 1:-1], st.relax("p"))
     p = apply_bc(p, case.p_bc)
 
-    u, v = project_velocity(u, v, p, dt, rho, dx, dy)
+    # the spacings as tensors on the fields' device, so that the card
+    # divides by them as the kernel does
+    dx_t, dy_t = (torch.tensor(h, dtype=u.dtype, device=u.device) for h in (dx, dy))
+    u, v = project_velocity(u, v, p, dt, rho, dx_t, dy_t)
     res = torch.stack([residual_sumsq(u, u0[1:-1, 1:-1]),
                        residual_sumsq(v, v0[1:-1, 1:-1]),
                        residual_sumsq(p, p0[1:-1, 1:-1])])
     u = apply_bfs_inlet(apply_bc(u, case.u_bc), 0, profile)
     v = apply_bfs_inlet(apply_bc(v, case.v_bc), 1, profile)
-    ff = rhie_chow_update(ff, p, dt, rho, dx, dy)
+    ff = rhie_chow_update(ff, p, dt, rho, dx_t, dy_t)
     return u, v, p, ff, res, (u_it, v_it, p_it)
 
 
@@ -322,10 +328,12 @@ class _Staged:
                 min_size=st.mg_min_size, coarsest_sweeps=st.mg_coarsest_sweeps)
         from .pressure_kernels import solve_pressure_kernel
 
-        # the wrapper clamps omega to optimal_sor, as the TPU kernel does
+        # the wrapper clamps omega to optimal_sor, as the TPU kernel does,
+        # and divides by ap_d as pallas_step.py:309 does
         return solve_pressure_kernel(
             p0, ff, **kw, max_iter=st.inner_max_iter,
-            check_every=max(1, st.pressure_check_every), sor=st.pressure_sor)
+            check_every=max(1, st.pressure_check_every), sor=st.pressure_sor,
+            divide=True)
 
     def step(self, u0, v0, p0, ff: FaceFluxes):
         st = self.case.settings

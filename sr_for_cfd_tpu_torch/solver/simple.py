@@ -6,7 +6,12 @@ BC -> projection (+ residuals) -> u, v BCs -> Rhie-Chow -> RMS check.
 With `use_pallas` the pressure solve runs on the hand-written CUDA kernels
 (`ops/pressure_kernels.py` for 'sweeps', `ops/mg_kernels.py` for
 'multigrid'); momentum, fluxes, BCs and projection are plain PyTorch, as
-they are `jnp` outside any Pallas kernel in the JAX package. With
+they are `jnp` outside any Pallas kernel in the JAX package. Past the
+big-grid threshold, or with `mg_slab_rows > 0` (`config.big_grid_kernels`,
+the JAX package's `big_grid_pallas`), both halves of the step take the
+big-grid kernels: the momentum solves `ops/momentum_kernels.py` (with
+`momentum_check_every` raised to at least 3, announced by `CFDSolver`) and
+the multigrid pressure `ops/stream_kernels.py`. With
 `fused_step` the whole step, `steps_per_kernel` of them per call, runs
 through `ops/step_kernels.py` (`_fused_step`).
 
@@ -35,6 +40,7 @@ from ..config import (
     FluidProperties,
     MeshParameters,
     SolverSettings,
+    big_grid_kernels,
 )
 from ..ops import extrapolate as rre
 from ..ops.bc import BFSInletProfile, apply_bc, apply_bfs_inlet
@@ -50,6 +56,54 @@ from ..utils.device import resolve_device
 from .state import SolverState, init_state, inlet_profile, torch_dtype, warm_start_state
 
 
+def _tiled_momentum(case: CaseConfig) -> bool:
+    """The big-grid path's momentum solves take the tiled kernel (red-black,
+    float32), as in the JAX package."""
+    st = case.settings
+    return (big_grid_kernels(st, case.mesh) and st.inner_scheme == "redblack"
+            and st.dtype == "float32")
+
+
+def _big_grid_notices(case: CaseConfig) -> None:
+    """Print what the big-grid path changes, as the JAX package prints it
+    when it compiles the step: the raised momentum_check_every and a slab
+    height clamped to the TPU's slab envelope."""
+    st = case.settings
+    if _tiled_momentum(case) and st.momentum_check_every < 3:
+        print(f"[tiled-momentum] momentum_check_every "
+              f"{st.momentum_check_every} -> 3 (multi-sweep kernel "
+              "passes; inner counts become multiples of 3)")
+    if big_grid_kernels(st, case.mesh) and st.pressure_solver == "multigrid":
+        from ..ops.stream_kernels import SLAB_ROWS, auto_slab_rows
+
+        rows, ny = st.mg_slab_rows or SLAB_ROWS, case.mesh.ny
+        if auto_slab_rows(rows, ny) != rows:
+            print(f"[stream-mg] slab_rows {rows} -> {auto_slab_rows(rows, ny)} "
+                  f"at width {ny} (VMEM slab envelope; see "
+                  "stream_kernels.SLAB_CELLS_MAX)", flush=True)
+
+
+def _momentum_solver(case: CaseConfig):
+    """(f, f_old_int, ff, nu) -> (f, sweeps): the tiled momentum kernel on
+    the big-grid path, else the plain sweeps."""
+    mesh, st = case.mesh, case.settings
+    kw = dict(scheme=st.scheme, dx=mesh.dx, dy=mesh.dy, dt=st.dt,
+              volp=mesh.volp, tol=st.inner_tolerance, max_iter=st.inner_max_iter)
+    if _tiled_momentum(case):
+        from ..ops import momentum_kernels
+        from ..ops.stream_kernels import SLAB_ROWS, auto_slab_rows
+
+        # at least 3 sweeps per pass, as the JAX package does
+        check_every = max(3, st.momentum_check_every)
+        slab_rows = auto_slab_rows(st.mg_slab_rows or SLAB_ROWS, mesh.ny + 2)
+        return lambda f, old, ff, nu: momentum_kernels.tiled_solve_momentum(
+            f, old, ff, nu=nu, check_every=check_every, slab_rows=slab_rows,
+            return_count=True, **kw)
+    return lambda f, old, ff, nu: solve_momentum(
+        f, old, ff, nu=nu, inner_scheme=st.inner_scheme,
+        check_every=st.momentum_check_every, **kw)
+
+
 def _pressure(p, ff, case: CaseConfig) -> Tuple[torch.Tensor, int]:
     mesh, fluid, st = case.mesh, case.fluid, case.settings
     kw = dict(dx=mesh.dx, dy=mesh.dy, dt=st.dt, rho=fluid.rho, volp=mesh.volp,
@@ -58,6 +112,12 @@ def _pressure(p, ff, case: CaseConfig) -> Tuple[torch.Tensor, int]:
         mg_kw = dict(n_pre=st.mg_n_pre, n_post=st.mg_n_post,
                      smoother_sor=st.mg_smoother_sor, min_size=st.mg_min_size,
                      coarsest_sweeps=st.mg_coarsest_sweeps)
+        if big_grid_kernels(st, mesh):
+            from ..ops import stream_kernels
+
+            return stream_kernels.stream_mg_solve_pressure(
+                p, ff, **kw, **mg_kw, return_count=True,
+                slab_rows=st.mg_slab_rows or stream_kernels.SLAB_ROWS)
         if st.use_pallas:
             from ..ops.mg_kernels import mg_solve_pressure_kernel
 
@@ -92,19 +152,17 @@ def simple_step(
         nu = torch.tensor(fluid.nu, dtype=state.u.dtype, device=state.u.device)
     if st.fused_step:
         return _fused_step(state, case, profile, nu, with_counts=with_counts)
-    dx, dy, volp, dt = mesh.dx, mesh.dy, mesh.volp, st.dt
-    sweep_kw = dict(
-        scheme=st.scheme, dx=dx, dy=dy, dt=dt, nu=nu, volp=volp,
-        tol=st.inner_tolerance, max_iter=st.inner_max_iter,
-        inner_scheme=st.inner_scheme, check_every=st.momentum_check_every,
-    )
+    dx, dy, dt = mesh.dx, mesh.dy, st.dt
+    # both dispatch sites (momentum, pressure) route by big_grid_kernels, as
+    # the JAX package routes both by its one big_grid_pallas flag
+    momentum = _momentum_solver(case)
     counts = {}
 
-    u, counts["u"] = solve_momentum(state.u, state.u_old, state.ff, **sweep_kw)
+    u, counts["u"] = momentum(state.u, state.u_old, state.ff, nu)
     u = under_relax(u, state.u_old, st.relax("u"))
     u = apply_bfs_inlet(apply_bc(u, case.u_bc), 0, profile)
 
-    v, counts["v"] = solve_momentum(state.v, state.v_old, state.ff, **sweep_kw)
+    v, counts["v"] = momentum(state.v, state.v_old, state.ff, nu)
     v = under_relax(v, state.v_old, st.relax("v"))
     v = apply_bfs_inlet(apply_bc(v, case.v_bc), 1, profile)
 
@@ -287,6 +345,7 @@ class CFDSolver:
             mesh, fluid, solver_settings, bc, bfs=bfs,
             case_name=case_name, bc_label=bc_label,
         )
+        _big_grid_notices(self.case)
         self.profile = inlet_profile(self.case, self.device)
         self.state = init_state(self.case, self.device)
         self.residual_history = ResidualHistory()

@@ -38,14 +38,20 @@ from ..utils.naming import (
 def kernel_launch_counts() -> Dict[str, int]:
     """Launch counters of the CUDA kernel wrappers, and the RRE jumps
     attempted and taken."""
+    from ..ops import stream_kernels as sk
     from ..ops.extrapolate import rre_extrapolate
     from ..ops.mg_kernels import mg_solve_pressure_kernel
+    from ..ops.momentum_kernels import tiled_solve_momentum
     from ..ops.pressure_kernels import solve_pressure_kernel
     from ..ops.step_kernels import simple_step_kernel
 
     return {"rb_sor_pressure": solve_pressure_kernel.launches,
             "mg_vcycle_pressure": mg_solve_pressure_kernel.launches,
             "fused_step": simple_step_kernel.launches,
+            "tiled_momentum": tiled_solve_momentum.launches,
+            "stream_pass_a": sk.stream_pass_a.launches,
+            "stream_level1": sk.level1_correction.launches,
+            "stream_pass_b": sk.stream_pass_b.launches,
             "rre_attempts": rre_extrapolate.attempts,
             "rre_taken": rre_extrapolate.taken}
 

@@ -62,7 +62,7 @@ def test_settings_validation_matches_jax():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(pressure_solver="tiled"), "row 5"),
-    (dict(use_pallas=True, pressure_solver="multigrid", mg_slab_rows=16), "rows 4"),
+    (dict(spmd_devices=4, pressure_solver="multigrid"), "A11"),
     (dict(spmd_devices=2), "A11"),
 ])
 def test_unported_settings_are_refused(kw, item):
@@ -111,13 +111,98 @@ def test_fused_settings_refused_like_jax(kw, match):
                                  mod.BoundaryConditions())
 
 
-def test_big_grid_kernel_path_is_refused():
+# Settings drawn for the seeded comparison of the two packages' validation:
+# every option that a check of `SolverSettings.__post_init__` or
+# `CaseConfig.build` reads, with values on both sides of each check.
+_SETTING_CHOICES = dict(
+    scheme=["QUICK", "UPWIND"],
+    pressure_solver=["sweeps", "multigrid", "multigrid", "tiled"],
+    dtype=["float32", "float32", "float32", "float64"],
+    use_pallas=[False, True],
+    fused_step=[False, False, False, True],
+    steps_per_kernel=[1, 1, 1, 1, 2, 5],
+    chunk_size=[30, 64, 100, 280],
+    rre_every=[0, 0, 0, 0, 10, 40],
+    rre_depth=[1, 2, 6, 6],
+    convergence_hold=[1, 1, 1, 2],
+    cauchy_tol=[0.0, 0.0, 1e-3],
+    cauchy_check_every=[100, 5000],
+    plateau_patience=[0, 0, 5],
+    plateau_check_every=[100, 2000],
+    mg_slab_rows=[0, 0, 0, 0, 16, 32, 8, -16],
+    mg_n_pre=[0, 1, 4, 4, 4],
+    mg_n_post=[0, 1, 4, 4, 4],
+    spmd_devices=[1, 1, 1, 2],
+)
+_MESHES = [(16, 16), (1000, 1000), (15, 16), (1201, 1200)]
+
+
+def _build_outcome(mod, n, kw):
+    """('ok', None) or ('refused', message) or ('unported', message)."""
+    try:
+        mod.CaseConfig.build(mod.MeshParameters(nx=n[0], ny=n[1]),
+                             mod.FluidProperties(), mod.SolverSettings.make(**kw),
+                             mod.BoundaryConditions())
+    except ValueError as e:
+        return "refused", str(e)
+    except NotImplementedError as e:
+        return "unported", str(e)
+    return "ok", None
+
+
+def test_settings_refused_like_jax_seeded():
+    """Over 800 seeded draws of settings on 16^2 and 1000^2 meshes (and an
+    odd and a past-threshold one), both packages accept the same set and
+    raise the same `ValueError` text where both refuse. A configuration the
+    port refuses as not yet ported (NotImplementedError) is one that JAX
+    accepts, and the message names the ROADMAP item."""
+    g = np.random.default_rng(20261017)
+    seen = {"ok": 0, "refused": 0, "unported": 0}
+    for _ in range(800):
+        kw = {k: v[g.integers(len(v))] for k, v in _SETTING_CHOICES.items()}
+        n = _MESHES[g.integers(len(_MESHES))]
+        j_kind, j_msg = _build_outcome(jcfg, n, kw)
+        t_kind, t_msg = _build_outcome(tcfg, n, kw)
+        seen[t_kind] += 1
+        if t_kind == "unported":
+            assert j_kind == "ok", (n, kw, j_msg)
+            assert "row 5" in t_msg or "A11" in t_msg, t_msg
+            continue
+        assert (t_kind, t_msg) == (j_kind, j_msg), (n, kw)
+    assert min(seen.values()) > 20, seen
+
+
+def test_big_grid_kernel_path_builds_and_routes(monkeypatch):
+    """A 1200^2 use_pallas multigrid case builds (past 1.35M cells, as in
+    the JAX package's big_grid_pallas rule) and its step sends both
+    momentum solves to the tiled momentum kernel and the pressure to the
+    streamed V-cycle, with momentum_check_every raised to 3."""
+    from sr_for_cfd_tpu_torch.ops import momentum_kernels, stream_kernels
+    from sr_for_cfd_tpu_torch.solver import simple as tsimple
+
+    calls = []
+
+    def fake_momentum(phi, old, ff, **kw):
+        calls.append(("momentum", kw["check_every"], kw["slab_rows"]))
+        return phi, 3
+
+    def fake_pressure(p, ff, **kw):
+        calls.append(("pressure", kw["slab_rows"]))
+        return p, 1
+
+    monkeypatch.setattr(momentum_kernels, "tiled_solve_momentum", fake_momentum)
+    monkeypatch.setattr(stream_kernels, "stream_mg_solve_pressure", fake_pressure)
     settings = tcfg.SolverSettings.make(use_pallas=True,
                                         pressure_solver="multigrid")
     mesh = tcfg.MeshParameters(nx=1200, ny=1200)
-    with pytest.raises(NotImplementedError, match="big-grid"):
-        tcfg.CaseConfig.build(mesh, tcfg.FluidProperties(), settings,
-                              tcfg.BoundaryConditions())
+    case = tcfg.CaseConfig.build(mesh, tcfg.FluidProperties(), settings,
+                                 tcfg.BoundaryConditions())
+    assert tcfg.big_grid_kernels(case.settings, case.mesh)
+    state = tstate.init_state(case, "cpu")
+    _, counts = tsimple.simple_step(state, case, None, with_counts=True)
+    assert calls == [("momentum", 3, 256), ("momentum", 3, 256),
+                     ("pressure", 256)]
+    assert counts == {"u": 3, "v": 3, "p": 1}
 
 
 @pytest.mark.parametrize("preset", ["lid_driven_cavity", "double_lid_cavity", "bfs"])

@@ -208,3 +208,98 @@ def test_fused_solver_on_the_card_matches_the_cpu(card, design):
     for c in "uvp":
         scale = max(1.0, float(np.abs(b[c]).max()))
         np.testing.assert_allclose(a[c], b[c], rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+def test_rb_sor_divide_form_matches_plain(card):
+    """The divide form of the SOR kernel ((sor r) / ap_d, design (b)'s
+    point-iteration pressure) against its plain version, on the BFS
+    spacing where 1/ap_d is not exact: single-block and many-block."""
+    for n in (10, 400):
+        p, ff, geo = _problem(n, n, n, 10.0, 3.0, card)
+        kw = dict(geo, tol=0.0, max_iter=64, check_every=8, sor=1.0, divide=True)
+        out, n_out = solve_pressure_kernel(p, ff, **kw)
+        ref, n_ref = solve_pressure_plain(p, ff, **kw)
+        _close(out, ref)
+        assert n_out == n_ref == 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,check_every", [("QUICK", 3), ("UPWIND", 1)])
+def test_tiled_momentum_kernel_matches_plain(card, scheme, check_every):
+    """The ragged 72-row problem of the CPU parity test: same sweep count,
+    fields within 2e-5 of the largest value."""
+    from sr_for_cfd_tpu_torch.ops.momentum_kernels import (
+        tiled_solve_momentum,
+        tiled_solve_momentum_plain,
+    )
+
+    n = 72
+    rng = np.random.default_rng(3)
+    u = torch.tensor(rng.standard_normal((n + 2, n + 2)) * 0.3,
+                     dtype=torch.float32, device=card)
+    v = torch.tensor(rng.standard_normal((n + 2, n + 2)) * 0.3,
+                     dtype=torch.float32, device=card)
+    old = u[1:-1, 1:-1] + torch.tensor(rng.standard_normal((n, n)) * 0.01,
+                                       dtype=torch.float32, device=card)
+    ff = face_fluxes(u, v, 1.0 / n, 1.0 / n)
+    kw = dict(scheme=scheme, dx=1.0 / n, dy=1.0 / n, dt=1e-3, nu=0.01,
+              volp=1.0 / n**2, tol=1e-6, max_iter=40, check_every=check_every)
+    before = tiled_solve_momentum.launches
+    out, n_out = tiled_solve_momentum(u, old, ff, return_count=True, **kw)
+    assert tiled_solve_momentum.launches > before
+    ref, n_ref = tiled_solve_momentum_plain(u, old, ff, **kw)
+    _close(out, ref)
+    assert n_out == n_ref and n_out % check_every == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,lx,ly", [(72, 64, 1.0, 1.0), (64, 48, 10.0, 3.0),
+                                         (48, 64, 3.0, 10.0)])
+def test_streamed_passes_match_plain(card, nx, ny, lx, ly):
+    """Pass A, the level-1 correction and pass B, each against its plain
+    version on the same inputs, then two forced streamed cycles."""
+    from sr_for_cfd_tpu_torch.ops import stream_kernels as sk
+    from sr_for_cfd_tpu_torch.ops.multigrid import frozen_ghost_rhs
+
+    p, ff, geo = _problem(nx + ny, nx, ny, lx, ly, card)
+    lv = sk.StreamLevels(nx, ny, geo["dx"], geo["dy"], geo["volp"], card)
+    inv_dx2, inv_dy2 = lv.setup.spacings[0]
+    b = frozen_ghost_rhs(p, ff, geo["dt"], geo["rho"], geo["volp"],
+                         inv_dx2, inv_dy2).contiguous()
+    x = p[1:-1, 1:-1].contiguous()
+    xa, b1, rms = sk.stream_pass_a(x, b, lv)
+    xa_ref, b1_ref, rms_ref = sk.stream_pass_a_plain(x, b, lv)
+    _close(xa, xa_ref)
+    _close(b1, b1_ref)
+    assert abs(rms.item() - rms_ref.item()) <= 1e-6 * rms_ref.item()
+    e = sk.level1_correction(b1_ref, lv)
+    e_ref = sk.level1_correction_plain(b1_ref, lv)
+    _close(e, e_ref)
+    xb = sk.stream_pass_b(xa_ref.clone(), b, e_ref, lv)
+    _close(xb, sk.stream_pass_b_plain(xa_ref, b, e_ref, lv))
+    kw = dict(geo, tol=1e-30, max_cycles=2, return_count=True)
+    out, n_out = sk.stream_mg_solve_pressure(p, ff, **kw)
+    ref, n_ref = sk.stream_mg_solve_pressure(p.cpu(), type(ff)(*(t.cpu() for t in ff)),
+                                             **kw)
+    _close(out.cpu(), ref)
+    assert n_out == n_ref == 2
+    assert torch.equal(out[0], p[0]) and torch.equal(out[:, -1], p[:, -1])
+
+
+@pytest.mark.cuda
+def test_big_grid_solve_matches_cpu(card):
+    """The forced-slab cavity through the big-grid kernels on the card
+    against the plain path on the CPU: equal counts, fields within 1e-4 of
+    the largest value."""
+    kw = dict(Re=500, nx=48, ny=48, dt=2e-3, scheme="QUICK", dtype="float32",
+              pressure_solver="multigrid", chunk_size=30, max_iterations=60,
+              use_pallas=True, mg_slab_rows=16)
+    gpu = make_cavity_solver(device=card, **kw)
+    cpu = make_cavity_solver(device="cpu", **kw)
+    assert gpu.solve(verbose=False, save_results=False)[0] == 60
+    assert cpu.solve(verbose=False, save_results=False)[0] == 60
+    a, b = gpu.interior_fields(), cpu.interior_fields()
+    for c in "uvp":
+        scale = max(1.0, float(np.abs(b[c]).max()))
+        np.testing.assert_allclose(a[c], b[c], rtol=0, atol=1e-4 * scale)

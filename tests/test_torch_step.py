@@ -87,3 +87,41 @@ def test_fused_run_chunk_matches_jax():
     assert ts.count == int(js.count) == 64
     np.testing.assert_allclose(ts.rms, np.asarray(js.rms), rtol=1e-3)
     _close(js, ts)
+
+
+def test_staged_point_pressure_divides_like_the_pallas_step():
+    """Design (b)'s point-iteration pressure stage passes `divide=True`, so
+    its update is (sor r) / ap_d as in `pallas_step.py:309` (the plain
+    whole-step version divides too). On a CPU tensor the wrapper runs its
+    plain version, which must equal the plain step's pressure loop bit for
+    bit, count included; on the BFS grid (ap_d = -6.27, not a power of two)
+    the reciprocal form of `rb_sor.cu`'s standalone mode differs."""
+    from sr_for_cfd_tpu_torch.ops import step_kernels
+    from sr_for_cfd_tpu_torch.ops.pressure_kernels import solve_pressure_plain
+    from sr_for_cfd_tpu_torch.ops.stencil import face_fluxes
+    from sr_for_cfd_tpu_torch.ops.sweeps import sweep_loop
+
+    _, st = _pair("bfs12x10_upwind", pressure_solver="sweeps",
+                  inner_tolerance=1e-6, pressure_sor=1.7)
+    case, s = st.case, st.state
+    staged = object.__new__(step_kernels._Staged)  # pressure() reads the case only
+    staged.case = case
+    ff = face_fluxes(s.u, s.v, case.mesh.dx, case.mesh.dy)
+    got, n_got = staged.pressure(s.p, ff)
+
+    mesh, cs = case.mesh, case.settings
+    inv_dx2, inv_dy2, ap_d, sor = step_kernels._coefficients(case)
+    b = (case.fluid.rho / cs.dt) * ff.divergence_sum()
+    ref, n_ref = sweep_loop(
+        s.p, lambda f: (b - step_kernels._laplacian(f, mesh.volp, inv_dx2,
+                                                    inv_dy2), ap_d),
+        nx=mesh.nx, ny=mesh.ny, tol=cs.inner_tolerance,
+        max_iter=cs.inner_max_iter, check_every=cs.pressure_check_every,
+        sor=sor)
+    assert n_got == n_ref
+    assert torch.equal(got, ref)
+    recip, _ = solve_pressure_plain(
+        s.p, ff, dx=mesh.dx, dy=mesh.dy, dt=cs.dt, rho=case.fluid.rho,
+        volp=mesh.volp, tol=cs.inner_tolerance, max_iter=n_got,
+        check_every=cs.pressure_check_every, sor=cs.pressure_sor)
+    assert not torch.equal(recip, got)
