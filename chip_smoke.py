@@ -19,8 +19,12 @@ no result line:
    (K=1, omega 1.0). The big-grid kernels at 2048x2048: a QUICK momentum
    pass (3 sweeps) and a momentum solve, the streamed V-cycle's pass A,
    level-1 correction and pass B each alone, one forced streamed cycle and
-   a 5-cycle streamed solve. Max abs difference against the stated
-   tolerance, counts, kernel and plain times (CUDA events) and bounds.
+   a 5-cycle streamed solve. The tiled red-black sweep at 2048x2048
+   (omega 1.9): one sweep (bit-equal expected), a solve to a tolerance
+   reached in 63 sweeps, and the same solve through the SOR kernel's
+   two-launch form (row 1, divide form, a check every sweep). Max abs
+   difference against the stated tolerance, counts, kernel and plain
+   times (CUDA events) and bounds.
 3. non-fused main path: `run_hybrid_experiment` for the BFS Re=400 hybrid
    at full width with `use_pallas=True, fused_step=False` (10x10 coarse on
    the SOR kernel, the shipped 10->400 autoencoder, warm and cold 400x400
@@ -36,14 +40,20 @@ no result line:
    multigrid), which the big-grid threshold routes to the tiled momentum
    kernel and the streamed V-cycle, through make_cavity_solver(...).solve:
    200 outer steps from the cold start, as the bench runs them.
-   In 3, 4 and 5 the launch counters are set to 0 just before and read just
+5b. tiled main path: `scripts/scaling_bench.py`'s tiled case at 2048x2048
+   (lid-driven cavity, Re=1000, QUICK, dt=1e-3, pressure_solver="tiled",
+   pressure_sor=1.9) through create_lid_driven_cavity: 200 outer steps from
+   the cold start in one chunk; the pressure must run on the tiled sweep
+   kernel and never on the SOR kernel.
+   In 3, 4, 5 and 5b the launch counters are set to 0 just before and read just
    after; each kernel of the path must have launched in its phases, and
    each fine phase of 4 must have attempted an RRE jump.
 6. references: the non-fused configuration of 3 and the fused one of 4 (with
    design (b) forced everywhere) at a small size (BFS 10x10 coarse, bicubic
-   SR, 32x32 fine), and the 48x48 cavity with mg_slab_rows=16 (the big-grid
-   path at a small size), on the card and with the plain PyTorch path on
-   the CPU; iteration counts must be equal and fields within 1e-4 relative.
+   SR, 32x32 fine), the 48x48 cavity with mg_slab_rows=16 (the big-grid
+   path at a small size) and the 48x48 tiled cavity (QUICK, Re=1000,
+   dt=1e-3, 60 steps), on the card and with the plain PyTorch path on the
+   CPU; iteration counts must be equal and fields within 1e-4 relative.
 
 The last lines are a `{"kernels": [...]}` line, the card's name and power
 limit as nvidia-smi prints them, and `{"ok": true, "device": {...}}`.
@@ -124,6 +134,13 @@ def rb_sor_work(nx, ny, sweeps, check_every):
     checks = sweeps // check_every
     return wrapper_bytes(nx, ny), nx * ny * (FLOP_SOR_CELL * sweeps
                                              + FLOP_SUMSQ_CELL * checks)
+
+
+def tiled_sweep_work(nx, ny):
+    """(bytes, flops) of one tiled red-black sweep: f and b (padded) read
+    once and f written once; every interior cell updated and its r^2
+    summed."""
+    return 3 * 4 * (nx + 2) * (ny + 2), nx * ny * (FLOP_SOR_CELL + FLOP_SUMSQ_CELL)
 
 
 def mg_work(plan, n_pre, n_post, coarsest_sweeps, cycles):
@@ -286,16 +303,17 @@ def seeded_problem(rng, nx, ny, lx, ly, device):
                                                volp=dx * dy)
 
 
-def check_pair(name, out_k, n_k, out_p, n_p, quiet=False):
+def check_pair(name, out_k, n_k, out_p, n_p, quiet=False, floor=1.0):
     """Max abs difference of kernel and plain outputs; fails beyond REL_TOL
-    of the plain output's largest |value| or on unequal counts."""
+    of max(floor, the plain output's largest |value|) or on unequal
+    counts."""
     import torch
 
     err = float(torch.max(torch.abs(out_k - out_p)).item())
-    scale = float(torch.max(torch.abs(out_p)).item())
-    ok = math.isfinite(err) and err <= REL_TOL * max(1.0, scale) and n_k == n_p
+    scale = max(floor, float(torch.max(torch.abs(out_p)).item()))
+    ok = math.isfinite(err) and err <= REL_TOL * scale and n_k == n_p
     if not quiet or not ok:
-        log(f"  {name}: max_abs_err={err:.3e} (tol {REL_TOL:g} x {max(1.0, scale):.3e}) "
+        log(f"  {name}: max_abs_err={err:.3e} (tol {REL_TOL:g} x {scale:.3e}) "
             f"count kernel={n_k} plain={n_p}")
     if not ok:
         fail(f"{name}: kernel and plain version disagree")
@@ -582,6 +600,92 @@ def plain_streamed_solve(p, ff, geo, cycles):
     return out, cycles
 
 
+# the tiled sweep's gates at 2048^2, omega 1.9 (the tiled cavity's
+# pressure_sor): on this seeded problem the rms falls below the solve's
+# tolerance at sweep 63, while it still falls by percents per sweep, far
+# above the float32 floor and before any stall
+TILED_SOR = 1.9
+TILED_GATE_TOL = 1.5e-4
+
+
+def phase_tiled_kernels(device):
+    """The tiled red-black sweep (row 5) at 2048^2 on a seeded problem: one
+    sweep and a solve against the plain version, the same solve through the
+    SOR kernel's two-launch form (row 1, divide=True, check_every=1);
+    times per sweep of the kernel alone, of the loop with its host read, of
+    the plain version and of the two-launch form."""
+    import numpy as np
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops import kernel_lib
+    from sr_for_cfd_tpu_torch.ops.pressure_kernels import (
+        _coefficients,
+        solve_pressure_kernel,
+        solve_pressure_plain,
+    )
+    from sr_for_cfd_tpu_torch.ops.tiled_kernels import tiled_solve_pressure
+
+    n = BIG_N
+    p, ff, geo = seeded_problem(np.random.default_rng(2048), n, n, 1.0, 1.0, device)
+    kw = dict(geo, sor=TILED_SOR)
+    plain_kw = dict(kw, check_every=1, divide=True)
+    gates = []
+    out_k, n_k = tiled_solve_pressure(p, ff, **kw, tol=0.0, max_iter=1)
+    out_p, n_p = solve_pressure_plain(p, ff, **plain_kw, tol=0.0, max_iter=1)
+    torch.cuda.synchronize()
+    # limits: REL_TOL x max|p| (no floor of 1: |p| is ~0.1 here)
+    sweep_err = check_pair(f"tiled_rb_pressure one sweep {n}^2", out_k, n_k, out_p, n_p,
+                           floor=0.0)
+    log(f"  tiled_rb_pressure one sweep: bit-equal {torch.equal(out_k, out_p)}")
+    gates.append(dict(gate="one sweep", sweeps=n_k, max_abs_err=sweep_err,
+                      bit_equal=torch.equal(out_k, out_p)))
+    solve = dict(tol=TILED_GATE_TOL, max_iter=200)
+    out_k, n_k = tiled_solve_pressure(p, ff, **kw, **solve)
+    out_p, n_p = solve_pressure_plain(p, ff, **plain_kw, **solve)
+    torch.cuda.synchronize()
+    err = check_pair(f"tiled_rb_pressure solve tol {TILED_GATE_TOL:g}", out_k, n_k,
+                     out_p, n_p, floor=0.0)
+    gates.append(dict(gate=f"solve tol {TILED_GATE_TOL:g}", sweeps=n_k, max_abs_err=err))
+    out_2, n_2 = solve_pressure_kernel(p, ff, **plain_kw, **solve)
+    torch.cuda.synchronize()
+    err2 = check_pair("two-launch form (row 1) against the tiled sweep, same solve",
+                      out_2, n_2, out_k, n_k, floor=0.0)
+    gates.append(dict(gate="row 1 two-launch form vs tiled, same solve", sweeps=n_2,
+                      max_abs_err=err2))
+
+    # the kernel alone: back-to-back sweeps between two buffers, no finalize
+    lib = kernel_lib.load_library()
+    stream = kernel_lib.stream_ptr(p.device)
+    inv_dx2, inv_dy2, sor, _, ap_d = _coefficients(geo["dx"], geo["dy"], geo["volp"],
+                                                   TILED_SOR, n, n)
+    b = torch.zeros_like(p)
+    b[1:-1, 1:-1] = (geo["rho"] / geo["dt"]) * ff.divergence_sum()
+    bufs = [p.clone(), p.clone()]
+    partials = torch.empty(lib.srcfd_tiled_rb_partials(n + 2, n + 2), device=p.device)
+
+    def sweep():
+        kernel_lib.check(lib.srcfd_tiled_rb_sweep(
+            bufs[0].data_ptr(), bufs[1].data_ptr(), b.data_ptr(), partials.data_ptr(),
+            n + 2, n + 2, inv_dx2, inv_dy2, geo["volp"], sor, ap_d, stream), "tiled_rb")
+        bufs.reverse()
+
+    sweeps = 100
+    ms = cuda_ms(sweep, 200)
+    loop = cuda_ms(lambda: tiled_solve_pressure(p, ff, **kw, tol=0.0, max_iter=sweeps),
+                   3) / sweeps
+    two = cuda_ms(lambda: solve_pressure_kernel(p, ff, **plain_kw, tol=0.0,
+                                                max_iter=sweeps), 3) / sweeps
+    plain = cuda_ms(lambda: solve_pressure_plain(p, ff, **plain_kw, tol=0.0,
+                                                 max_iter=10), 2) / 10
+    b_ms, b_by = bound_ms(*tiled_sweep_work(n, n))
+    log(f"  tiled_rb_pressure {n}^2, ms per sweep: kernel alone {ms:.5f}, in the loop "
+        f"with its finalize and host read {loop:.5f}, plain {plain:.5f}, row 1's "
+        f"two-launch form {two:.5f}; bound {b_ms:.6f} ({b_by})")
+    return dict(max_abs_err=sweep_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, loop_ms_per_sweep=loop, two_launch_ms_per_sweep=two,
+                gates=gates)
+
+
 def finite_fields(solver):
     import torch
 
@@ -596,10 +700,11 @@ def reset_counters():
     from sr_for_cfd_tpu_torch.ops.momentum_kernels import tiled_solve_momentum
     from sr_for_cfd_tpu_torch.ops.pressure_kernels import solve_pressure_kernel
     from sr_for_cfd_tpu_torch.ops.step_kernels import simple_step_kernel
+    from sr_for_cfd_tpu_torch.ops.tiled_kernels import tiled_solve_pressure
 
     for fn in (solve_pressure_kernel, mg_solve_pressure_kernel, simple_step_kernel,
                tiled_solve_momentum, sk.stream_pass_a, sk.level1_correction,
-               sk.stream_pass_b):
+               sk.stream_pass_b, tiled_solve_pressure):
         fn.launches = 0
     rre_extrapolate.attempts = rre_extrapolate.taken = 0
 
@@ -760,6 +865,72 @@ def phase_big_grid(device):
     return {k: v for k, v in launches.items() if not k.startswith("rre")}
 
 
+# scripts/scaling_bench.py's tiled case at its 2048^2 grid (:25-31, :50-52):
+# the pressure on the tiled sweep kernel, the momentum on the plain sweeps;
+# TILED_STEPS outer steps from the cold start in one chunk, as the bench runs
+# them
+TILED = dict(Re=1000, nx=BIG_N, ny=BIG_N, dt=1e-3, scheme="QUICK", dtype="float32",
+             pressure_solver="tiled", pressure_sor=TILED_SOR)
+TILED_STEPS = 200
+
+
+def phase_tiled(device):
+    """The 2048^2 tiled cavity through create_lid_driven_cavity, after the
+    library is loaded by a solver's precompile(); launch counters set to 0
+    just before and read just after, each step's inner counts recorded on
+    the way (simple_step with_counts)."""
+    import torch
+
+    from sr_for_cfd_tpu_torch import create_lid_driven_cavity
+    from sr_for_cfd_tpu_torch.solver import simple as tsimple
+    from sr_for_cfd_tpu_torch.solver.cases import make_cavity_solver
+    from sr_for_cfd_tpu_torch.workflow.hybrid import kernel_launch_counts
+
+    make_cavity_solver(device=device, **TILED).precompile()
+    step, counts = tsimple.simple_step, []
+
+    def counted_step(*a, **k):
+        state, c = step(*a, with_counts=True, **k)
+        counts.append(c)
+        return state
+
+    tsimple.simple_step = counted_step
+    try:
+        reset_counters()
+        solver, iters, elapsed = create_lid_driven_cavity(
+            **TILED, max_iterations=TILED_STEPS, chunk_size=TILED_STEPS,
+            save_results=False, verbose=False, device=device)
+        torch.cuda.synchronize()
+        launches = kernel_launch_counts()
+    finally:
+        tsimple.simple_step = step
+    if iters != TILED_STEPS or len(counts) != iters:
+        fail(f"tiled cavity ran {iters} steps, expected {TILED_STEPS}")
+    if not finite_fields(solver):
+        fail("tiled cavity: non-finite fields")
+    if launches["tiled_rb_pressure"] <= 0:
+        fail("the tiled sweep kernel did not launch on the tiled path")
+    if launches["rb_sor_pressure"] != 0:
+        fail("the tiled path launched the SOR kernel (row 1)")
+    mean = {c: sum(x[c] for x in counts) / iters for c in "uvp"}
+    per_step = {k: round(v / iters, 2) for k, v in launches.items()
+                if v and not k.startswith("rre")}
+    # where the step's time goes: the plain momentum sweeps, timed on a u
+    # solve from the final state (the pressure's share follows from the
+    # sweep counts and the row 5 gate's ms per sweep in the loop)
+    s, mom = solver.state, tsimple._momentum_solver(solver.case)
+    n_mom = mom(s.u, s.u_old, s.ff, solver._nu)[1]
+    mom_ms = cuda_ms(lambda: mom(s.u, s.u_old, s.ff, solver._nu), 3, warm=False)
+    log(f"  tiled cavity: one plain u momentum solve from the final state, "
+        f"{n_mom} sweeps: {mom_ms:.3f} ms ({mom_ms / max(n_mom, 1):.3f} per sweep)")
+    log(f"  tiled cavity {BIG_N}^2 Re=1000 QUICK omega {TILED_SOR}: {iters} steps in "
+        f"{elapsed:.3f} s, {1e3 * elapsed / iters:.3f} ms/iter; mean per step: pressure "
+        f"sweeps {mean['p']:.2f} (min {min(x['p'] for x in counts)}, max "
+        f"{max(x['p'] for x in counts)}), u sweeps {mean['u']:.2f}, v sweeps "
+        f"{mean['v']:.2f}; launches per step {per_step}; rms {solver.state.rms.tolist()}")
+    return {k: v for k, v in launches.items() if not k.startswith("rre")}
+
+
 def small_reference(name, device, kw, coarse):
     """A hybrid configuration at a small size on the card (kernels) and on
     the CPU (plain PyTorch): equal iteration counts, fields within 1e-4 of
@@ -808,6 +979,44 @@ def phase_reference(device):
     finally:
         simple_step_kernel.force_design = None
     big_grid_reference(device)
+    tiled_reference(device)
+
+
+def tiled_reference(device):
+    """The 48^2 tiled cavity (QUICK, Re=1000, dt=1e-3, float32, 60 steps,
+    the 2048^2 case's settings at a small size) on
+    the card (the tiled sweep kernel) and on the CPU (its plain version):
+    equal counts in the first 3 steps and over the solve, fields within
+    1e-4 of the largest |value|."""
+    import numpy as np
+
+    from sr_for_cfd_tpu_torch.solver import simple as tsimple
+    from sr_for_cfd_tpu_torch.solver.cases import make_cavity_solver
+
+    # omega 1.9 as in the 2048^2 case, clamped here to optimal_sor(48, 48)
+    kw = dict(TILED, nx=48, ny=48, chunk_size=60, max_iterations=60)
+    runs = {}
+    for dev in (device, "cpu"):
+        solver = make_cavity_solver(device=dev, **kw)
+        s, counts = solver.state, []
+        for _ in range(3):
+            s, c = tsimple.simple_step(s, solver.case, solver.profile,
+                                       nu=solver._nu, with_counts=True)
+            counts.append(c)
+        iters, _ = solver.solve(verbose=False, save_results=False)
+        runs[dev] = (counts, iters, solver.interior_fields())
+    (ck, ik, fk), (cp, ip, fp) = runs[device], runs["cpu"]
+    if ck != cp or ik != ip:
+        fail(f"tiled reference: counts differ, card {ck} {ik}, CPU {cp} {ip}")
+    worst = 0.0
+    for c in "uvp":
+        err = float(np.max(np.abs(fk[c] - fp[c])))
+        scale = max(1.0, float(np.max(np.abs(fp[c]))))
+        worst = max(worst, err / scale)
+        if not (np.all(np.isfinite(fk[c])) and err <= 1e-4 * scale):
+            fail(f"tiled reference: {c} differs by {err:.3e}")
+    log(f"  tiled 48x48 cavity card vs CPU: {ik} steps, inner counts of the first 3 "
+        f"steps {ck} (equal), worst relative field difference {worst:.3e} (limit 1e-4)")
 
 
 def big_grid_reference(device):
@@ -879,13 +1088,15 @@ def main():
     kernels = phase_kernels(device)
     fused = phase_fused(device)
     big_rows, big_gates = phase_big_grid_kernels(device)
+    tiled_row = phase_tiled_kernels(device)
     torch.cuda.synchronize()
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
 
     by_path = {}
     for name, phase in (("non_fused", phase_non_fused),
                         ("north_star", phase_north_star),
-                        ("big_grid", phase_big_grid)):
+                        ("big_grid", phase_big_grid),
+                        ("tiled", phase_tiled)):
         t = time.perf_counter()
         by_path[name] = phase(device)
         torch.cuda.synchronize()
@@ -939,6 +1150,11 @@ def main():
              source="sr_for_cfd_tpu_torch/csrc/mg_vcycle.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_stream.py:298",
              library_ms=None, **launches("stream_level1"), **big_rows["stream_level1"]),
+        # ms, plain_ms and bound_ms are per sweep at 2048^2 (kernel alone)
+        dict(name="tiled_rb_pressure", route="cuda",
+             source="sr_for_cfd_tpu_torch/csrc/tiled_rb.cu",
+             replaces="sr_for_cfd_tpu/ops/pallas_tiled.py:198",
+             library_ms=None, **launches("tiled_rb_pressure"), **tiled_row),
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -169,9 +169,11 @@ class SolverSettings:
     STREAM_MG_CELL_THRESHOLD cells (`big_grid_kernels`) the momentum solves
     take the tiled momentum kernel (`ops/momentum_kernels.py`) and the
     multigrid pressure the streamed V-cycle (`ops/stream_kernels.py`), as
-    in the JAX package. `fused_step=True` runs every outer step, or
-    `steps_per_kernel` of them per launch, through the whole-step kernel
-    (`ops/step_kernels.py`). On a CPU tensor each wrapper runs its plain
+    in the JAX package. `pressure_solver='tiled'` (float32, without
+    `use_pallas` or `fused_step`) runs the pressure on the one-pass tiled
+    sweep kernel (`ops/tiled_kernels.py`). `fused_step=True` runs every
+    outer step, or `steps_per_kernel` of them per launch, through the
+    whole-step kernel (`ops/step_kernels.py`). On a CPU tensor each wrapper runs its plain
     PyTorch version, which is how the tests reach them.
     """
 
@@ -355,18 +357,10 @@ def big_grid_kernels(settings: SolverSettings, mesh: MeshParameters) -> bool:
 def refuse_unported(settings: SolverSettings, mesh: MeshParameters) -> None:
     """Raise NotImplementedError for settings whose kernels or modules this
     port does not have yet, naming the ROADMAP item that ports them."""
-    unported = []
-    if settings.pressure_solver == "tiled":
-        unported.append(
-            "pressure_solver='tiled' (the slab-streamed sweep kernel: "
-            "ROADMAP queue B, row 5)")
     if settings.spmd_devices > 1:
-        unported.append(
-            "spmd_devices>1 (the sharded solver parallel/: ROADMAP queue "
-            "A, item A11)")
-    if unported:
         raise NotImplementedError(
-            "not ported to the PyTorch package yet: " + "; ".join(unported))
+            "not ported to the PyTorch package yet: spmd_devices>1 (the "
+            "sharded solver parallel/: ROADMAP queue A, item A11)")
 
 
 @dataclass(frozen=True)

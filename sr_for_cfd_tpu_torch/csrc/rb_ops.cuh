@@ -1,0 +1,31 @@
+// Device code shared by the red-black SOR pressure kernels: the residual and
+// the update of one cell. rb_sor.cu (the in-place half-sweeps and the
+// single-block loop) and tiled_rb.cu (one whole sweep per pass) call the same
+// expressions, so the two cannot drift apart.
+#pragma once
+
+#include "common.cuh"
+
+// divide = 0: p += (sor r) * (1 / ap_d), as the standalone TPU kernel
+// (pallas_kernels.py) does; divide = 1: p += (sor r) / ap_d, as the
+// point-iteration pressure stage of the fused step (pallas_step.py:309) and
+// the tiled sweep (pallas_tiled.py:93) do
+struct RbCoef {
+  float inv_dx2, inv_dy2, volp, sor, inv_ap, ap_d;
+  int divide;
+};
+
+__device__ __forceinline__ float rb_step(float r, const RbCoef& c) {
+  return c.divide ? (c.sor * r) / c.ap_d : c.sor * r * c.inv_ap;
+}
+
+// residual b - Fd at index idx of row-major arrays p and b that share the
+// row stride ny2
+__device__ __forceinline__ float rb_residual(const float* p, const float* b,
+                                             int idx, int ny2,
+                                             const RbCoef& c) {
+  const float f = p[idx];
+  const float fd = c.volp * ((p[idx + ny2] - 2.0f * f + p[idx - ny2]) * c.inv_dx2 +
+                             (p[idx + 1] - 2.0f * f + p[idx - 1]) * c.inv_dy2);
+  return b[idx] - fd;
+}

@@ -30,35 +30,13 @@
 
 #include <math.h>
 
-#include "common.cuh"
-
-// divide = 0: p += (sor r) * (1 / ap_d), as the standalone TPU kernel
-// (pallas_kernels.py) does; divide = 1: p += (sor r) / ap_d, as the
-// point-iteration pressure stage of the fused step (pallas_step.py:309)
-struct RbCoef {
-  float inv_dx2, inv_dy2, volp, sor, inv_ap, ap_d;
-  int divide;
-};
-
-__device__ __forceinline__ float rb_step(float r, const RbCoef& c) {
-  return c.divide ? (c.sor * r) / c.ap_d : c.sor * r * c.inv_ap;
-}
+#include "rb_ops.cuh"
 
 // unified stall policy (ops/sweeps.py: stall_update / stalled)
 struct StallPolicy {
   float reset_ratio, ratio;
   int patience, min_checks;
 };
-
-// residual b - Fd at padded index idx (row-major, ny2 contiguous)
-__device__ __forceinline__ float rb_residual(const float* p, const float* b,
-                                             int idx, int ny2,
-                                             const RbCoef& c) {
-  const float f = p[idx];
-  const float fd = c.volp * ((p[idx + ny2] - 2.0f * f + p[idx - ny2]) * c.inv_dx2 +
-                             (p[idx + 1] - 2.0f * f + p[idx - 1]) * c.inv_dy2);
-  return b[idx] - fd;
-}
 
 __global__ void __launch_bounds__(SRCFD_THREADS)
 rb_half_sweep_kernel(float* __restrict__ p, const float* __restrict__ b,
@@ -81,7 +59,8 @@ rb_half_sweep_kernel(float* __restrict__ p, const float* __restrict__ b,
   }
 }
 
-// rms = sqrt(sum(partials) / n_cells), summed in a fixed order by one block
+// rms = sqrt(sum(partials) / n_cells), summed in a fixed order by one block;
+// tiled_rb.cu's sweeps are finished by it too (srcfd_rms_finalize)
 __global__ void __launch_bounds__(SRCFD_THREADS)
 rms_finalize_kernel(const float* __restrict__ partials, int n, float n_cells,
                     float* __restrict__ out) {

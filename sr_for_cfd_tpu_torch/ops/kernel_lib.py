@@ -67,6 +67,9 @@ SIGNATURES = {
     "srcfd_sm_entry_half": (_I, [_P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P]),
     "srcfd_sm_restrict_rows": (_I, [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I,
                                     _F, _F, _P]),
+    "srcfd_tiled_rb_partials": (_I, [_I, _I]),
+    "srcfd_tiled_rb_sweep": (_I, [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
+                                  _P]),
 }
 
 _lock = threading.Lock()

@@ -1,12 +1,21 @@
-"""Flow-case presets: lid-driven cavity and backward-facing step
-(counterpart of `sr_for_cfd_tpu/solver/cases.py`)."""
+"""Flow-case presets: lid-driven cavity, backward-facing step and a custom
+case from dicts (counterpart of `sr_for_cfd_tpu/solver/cases.py`).
+
+The `create_*` functions build a solver, run it and return (solver,
+iterations, seconds), with the JAX package's signatures; `device` travels
+in `**kw` to `make_*_solver` (or is a keyword of `create_custom_case`) and
+defaults to the card. `save_results=True` writes the run's `_full.dat` and
+`_centerline.dat`; the JAX package's HDF5 group and PNGs are not ported
+yet (ROADMAP queue A, item A8).
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 from ..config import (
     BFSGeometry,
+    BoundaryCondition,
     BoundaryConditions,
     FluidProperties,
     MeshParameters,
@@ -45,6 +54,28 @@ def make_cavity_solver(
                      bc_label=bc_label, device=device)
 
 
+def create_lid_driven_cavity(
+    Re: float = 100,
+    nx: int = 100,
+    ny: int = 100,
+    dt: float = 0.001,
+    output_name: str = "cavity_Re100",
+    scheme: str = "QUICK",
+    convergence_criteria: Optional[Dict[str, float]] = None,
+    verbose: bool = True,
+    save_results: bool = True,
+    **kw,
+) -> Tuple[CFDSolver, int, float]:
+    """Create and solve a lid-driven cavity; returns (solver, iterations,
+    seconds)."""
+    solver = make_cavity_solver(
+        Re=Re, nx=nx, ny=ny, dt=dt, scheme=scheme,
+        convergence_criteria=convergence_criteria, **kw)
+    iterations, elapsed = solver.solve(output_name, verbose=verbose,
+                                       save_results=save_results)
+    return solver, iterations, elapsed
+
+
 def make_bfs_solver(
     Re: float = 400,
     nx: int = 400,
@@ -80,3 +111,60 @@ def make_bfs_solver(
     return CFDSolver(mesh, fluid, settings, bc, bfs=geom,
                      case_name="backward facing step",
                      bc_label="bfs_parabolic_inlet", device=device)
+
+
+def create_bfs_case(
+    nx: int = 400,
+    ny: int = 194,
+    dt: float = 2e-3,
+    scheme: str = "UPWIND",
+    output_name: str = "bfs_Re400",
+    relaxation_factors: Optional[Dict[str, float]] = None,
+    Re: float = 400,
+    verbose: bool = True,
+    save_results: bool = True,
+    log_convergence: bool = True,
+    **kw,
+) -> Tuple[CFDSolver, int, float]:
+    """Create and solve a backward-facing-step case; returns (solver,
+    iterations, seconds). `log_convergence` writes
+    `{output_name}_convergence.log`."""
+    solver = make_bfs_solver(
+        Re=Re, nx=nx, ny=ny, dt=dt, scheme=scheme,
+        relaxation_factors=relaxation_factors, **kw)
+    iterations, elapsed = solver.solve(
+        output_name, verbose=verbose, log_convergence=log_convergence,
+        save_results=save_results)
+    return solver, iterations, elapsed
+
+
+def create_custom_case(
+    mesh_params: Dict,
+    fluid_params: Dict,
+    solver_params: Dict,
+    bc_params: Dict,
+    output_name: str = "custom_case",
+    verbose: bool = True,
+    save_results: bool = True,
+    device="cuda",
+) -> Tuple[CFDSolver, int, float]:
+    """Create and solve a case from dicts: the keyword arguments of
+    `MeshParameters`, `FluidProperties` and `SolverSettings.make`, and
+    per-variable boundary conditions, e.g. ``{"u_boundaries": {"top":
+    {"type": "dirichlet", "value": 1.0}}}``, over the lid-driven cavity's
+    defaults. Returns (solver, iterations, seconds)."""
+    mesh = MeshParameters(**mesh_params)
+    fluid = FluidProperties(**fluid_params)
+    settings = SolverSettings.make(**solver_params)
+    bc = BoundaryConditions()
+    for var in ("u", "v", "p"):
+        key = f"{var}_boundaries"
+        if key in bc_params:
+            target = getattr(bc, key)
+            for wall, condition in bc_params[key].items():
+                target[wall] = BoundaryCondition(**condition)
+    solver = CFDSolver(mesh, fluid, settings, bc, case_name="custom case",
+                       bc_label="custom", device=device)
+    iterations, elapsed = solver.solve(output_name, verbose=verbose,
+                                       save_results=save_results)
+    return solver, iterations, elapsed

@@ -11,9 +11,11 @@ big-grid threshold, or with `mg_slab_rows > 0` (`config.big_grid_kernels`,
 the JAX package's `big_grid_pallas`), both halves of the step take the
 big-grid kernels: the momentum solves `ops/momentum_kernels.py` (with
 `momentum_check_every` raised to at least 3, announced by `CFDSolver`) and
-the multigrid pressure `ops/stream_kernels.py`. With
-`fused_step` the whole step, `steps_per_kernel` of them per call, runs
-through `ops/step_kernels.py` (`_fused_step`).
+the multigrid pressure `ops/stream_kernels.py`. `pressure_solver='tiled'`
+takes the one-pass tiled sweep kernel (`ops/tiled_kernels.py`) for the
+pressure, the momentum solves staying the plain sweeps, as in the JAX
+package. With `fused_step` the whole step, `steps_per_kernel` of them per
+call, runs through `ops/step_kernels.py` (`_fused_step`).
 
 The JAX package runs chunks of outer steps inside one `lax.while_loop`.
 Here the host runs each step and reads its three residuals; `run_chunk`
@@ -125,6 +127,11 @@ def _pressure(p, ff, case: CaseConfig) -> Tuple[torch.Tensor, int]:
         from ..ops.multigrid import mg_solve_pressure
 
         return mg_solve_pressure(p, ff, **kw, **mg_kw)
+    if st.pressure_solver == "tiled":  # config guarantees f32, no use_pallas
+        from ..ops.tiled_kernels import tiled_solve_pressure
+
+        return tiled_solve_pressure(p, ff, **kw, max_iter=st.inner_max_iter,
+                                    sor=st.pressure_sor)
     if st.use_pallas:  # config guarantees f32 + 'sweeps'
         from ..ops.pressure_kernels import solve_pressure_kernel
 
@@ -358,7 +365,8 @@ class CFDSolver:
         the seconds spent."""
         t0 = time.perf_counter()
         st = self.settings
-        if self.device.type == "cuda" and (st.use_pallas or st.fused_step):
+        if self.device.type == "cuda" and (st.use_pallas or st.fused_step
+                                           or st.pressure_solver == "tiled"):
             from ..ops.kernel_lib import load_library
 
             load_library()

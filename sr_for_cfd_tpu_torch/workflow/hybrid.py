@@ -44,6 +44,7 @@ def kernel_launch_counts() -> Dict[str, int]:
     from ..ops.momentum_kernels import tiled_solve_momentum
     from ..ops.pressure_kernels import solve_pressure_kernel
     from ..ops.step_kernels import simple_step_kernel
+    from ..ops.tiled_kernels import tiled_solve_pressure
 
     return {"rb_sor_pressure": solve_pressure_kernel.launches,
             "mg_vcycle_pressure": mg_solve_pressure_kernel.launches,
@@ -52,6 +53,7 @@ def kernel_launch_counts() -> Dict[str, int]:
             "stream_pass_a": sk.stream_pass_a.launches,
             "stream_level1": sk.level1_correction.launches,
             "stream_pass_b": sk.stream_pass_b.launches,
+            "tiled_rb_pressure": tiled_solve_pressure.launches,
             "rre_attempts": rre_extrapolate.attempts,
             "rre_taken": rre_extrapolate.taken}
 

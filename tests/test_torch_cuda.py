@@ -303,3 +303,44 @@ def test_big_grid_solve_matches_cpu(card):
     for c in "uvp":
         scale = max(1.0, float(np.abs(b[c]).max()))
         np.testing.assert_allclose(a[c], b[c], rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lx,ly", [(1.0, 1.0), (10.0, 3.0)])
+def test_tiled_sweep_matches_plain(card, lx, ly):
+    """The tiled red-black sweep (row 5) on a 130x97 grid, which no tile
+    divides: one sweep bit-equal to the plain version, and a solve at omega
+    1.9 with equal counts and fields, also against row 1's two-launch form
+    (divide=True, check_every=1), which computes the same function."""
+    from sr_for_cfd_tpu_torch.ops.tiled_kernels import tiled_solve_pressure
+
+    p, ff, geo = _problem(130 + 97, 130, 97, lx, ly, card)
+    kw = dict(geo, sor=1.9)
+    row1 = dict(kw, check_every=1, divide=True)
+    out, n_out = tiled_solve_pressure(p, ff, **kw, tol=0.0, max_iter=1)
+    ref, n_ref = solve_pressure_plain(p, ff, **row1, tol=0.0, max_iter=1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and n_out == n_ref == 1
+    before = tiled_solve_pressure.launches
+    out, n_out = tiled_solve_pressure(p, ff, **kw, tol=1e-3, max_iter=300)
+    assert tiled_solve_pressure.launches == before + 2 * n_out
+    ref, n_ref = solve_pressure_plain(p, ff, **row1, tol=1e-3, max_iter=300)
+    two, n_two = solve_pressure_kernel(p, ff, **row1, tol=1e-3, max_iter=300)
+    _close(out, ref)
+    _close(two, out)
+    assert n_out == n_ref == n_two < 300
+    assert torch.equal(out[0], p[0]) and torch.equal(out[:, -1], p[:, -1])
+
+
+@pytest.mark.cuda
+def test_tiled_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    from sr_for_cfd_tpu_torch.ops.tiled_kernels import tiled_solve_pressure
+
+    kw = dict(dx=0.1, dy=0.1, dt=1e-3, rho=1.0, volp=0.01)
+    p = torch.zeros((12, 12), dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        tiled_solve_pressure(p, face_fluxes(p, p, 0.1, 0.1), **kw)
+    pt = torch.zeros((14, 12), dtype=torch.float32, device=card).T
+    fft = face_fluxes(pt.contiguous(), pt.contiguous(), 0.1, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tiled_solve_pressure(pt, fft, **kw)
