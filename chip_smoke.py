@@ -22,7 +22,11 @@ no result line:
    a 5-cycle streamed solve. The tiled red-black sweep at 2048x2048
    (omega 1.9): one sweep (bit-equal expected), a solve to a tolerance
    reached in 63 sweeps, and the same solve through the SOR kernel's
-   two-launch form (row 1, divide form, a check every sweep). Max abs
+   two-launch form (row 1, divide form, a check every sweep). The
+   per-rank red-black sweep (row 9) on the seeded 2048x2048 field cut as
+   8 ranks' 256-row bands (omega 1.9, kb 1 and 8): own rows and residual
+   sum bit-equal to the plain version on ranks 0, 3 and 7, the 8 bands
+   stitched against kb whole-grid sweeps within 1e-6 of max|p|. Max abs
    difference against the stated tolerance, counts, kernel and plain
    times (CUDA events) and bounds.
 3. non-fused main path: `run_hybrid_experiment` for the BFS Re=400 hybrid
@@ -45,15 +49,30 @@ no result line:
    pressure_sor=1.9) through create_lid_driven_cavity: 200 outer steps from
    the cold start in one chunk; the pressure must run on the tiled sweep
    kernel and never on the SOR kernel.
-   In 3, 4, 5 and 5b the launch counters are set to 0 just before and read just
-   after; each kernel of the path must have launched in its phases, and
-   each fine phase of 4 must have attempted an RRE jump.
+5c. SPMD sweeps path: `SpmdSolver(case, group)` (the row-decomposed
+   solver over torch.distributed, one rank: an NCCL group of world size 1
+   through a file:// store, made after the build and destroyed at the
+   end) on the 400x400 cavity of `__graft_entry__.py:148-152` (Re=1000,
+   QUICK, dt=1e-3, float32) with use_pallas=True and
+   pressure_solver="sweeps": the pressure on the per-rank sweep, 100 steps
+   from the cold start.
+5d. SPMD multigrid path: the same solver on the 2048x2048 cavity of
+   `scripts/scaling_bench.py` with use_pallas=True and
+   pressure_solver="multigrid" (the sharded V-cycle, its smoother on the
+   per-rank sweep), the bench's 200 steps.
+   In 3, 4, 5, 5b, 5c and 5d the launch counters are set to 0 just before
+   and read just after; each kernel of the path must have launched in its
+   phases, and each fine phase of 4 must have attempted an RRE jump. 5c
+   and 5d print ms/iter, inner counts, row 9 launches and collectives per
+   step.
 6. references: the non-fused configuration of 3 and the fused one of 4 (with
    design (b) forced everywhere) at a small size (BFS 10x10 coarse, bicubic
    SR, 32x32 fine), the 48x48 cavity with mg_slab_rows=16 (the big-grid
    path at a small size) and the 48x48 tiled cavity (QUICK, Re=1000,
    dt=1e-3, 60 steps), on the card and with the plain PyTorch path on the
-   CPU; iteration counts must be equal and fields within 1e-4 relative.
+   CPU, and the 32x32 SpmdSolver cavity of 5c (40 steps; its CPU side on a
+   gloo group of the same rank); iteration counts must be equal and fields
+   within 1e-4 relative.
 
 The last lines are a `{"kernels": [...]}` line, the card's name and power
 limit as nvidia-smi prints them, and `{"ok": true, "device": {...}}`.
@@ -701,10 +720,11 @@ def reset_counters():
     from sr_for_cfd_tpu_torch.ops.pressure_kernels import solve_pressure_kernel
     from sr_for_cfd_tpu_torch.ops.step_kernels import simple_step_kernel
     from sr_for_cfd_tpu_torch.ops.tiled_kernels import tiled_solve_pressure
+    from sr_for_cfd_tpu_torch.parallel.spmd_kernels import shard_rb_sweep
 
     for fn in (solve_pressure_kernel, mg_solve_pressure_kernel, simple_step_kernel,
                tiled_solve_momentum, sk.stream_pass_a, sk.level1_correction,
-               sk.stream_pass_b, tiled_solve_pressure):
+               sk.stream_pass_b, tiled_solve_pressure, shard_rb_sweep):
         fn.launches = 0
     rre_extrapolate.attempts = rre_extrapolate.taken = 0
 
@@ -1057,6 +1077,224 @@ def big_grid_reference(device):
         f"{worst:.3e} (limit 1e-4)")
 
 
+# the row-decomposed solver (sr_for_cfd_tpu_torch/parallel/): one rank on the
+# card, an NCCL group of world size 1 through a file:// store
+SPMD_RANKS = 8  # the row 9 gates cut the 2048^2 field as 8 ranks' bands
+SHARD_SOR = 1.9  # min(1.9, optimal_sor(2048, 2048)) = 1.9
+FLOP_SHARD_CELL = 13  # shard_rb.cu: Laplacian, residual, f + r * inv_ap
+
+
+def shard_block(p, b, rank, rows, h):
+    """(ext, b_ext) of `rank`'s band with an h-row halo, as
+    spmd_step.assemble and spmd_kernels.extend_b_halo build them: the
+    padded field's rows, the ghost row repeated beyond the domain; the
+    interior right-hand side, zero outside the domain and on the y-ghost
+    columns."""
+    import torch
+
+    nx = p.shape[0] - 2
+    gi = torch.arange(rank * rows - h, (rank + 1) * rows + h, device=p.device)
+    ext = p[(gi + 1).clamp(0, nx + 1)].contiguous()
+    inside = (gi >= 0) & (gi < nx)
+    b_ext = torch.zeros_like(ext)
+    b_ext[inside, 1:-1] = b[gi[inside]]
+    return ext, b_ext
+
+
+def shard_work(R, W, rows, kb, all_valid=True):
+    """(bytes, flops) of one per-rank call: ext and b_ext read once, the own
+    rows written once; kb sweeps over the block's valid cells, r^2 summed
+    over the own cells."""
+    cells = (R if all_valid else rows) * (W - 2)
+    return 4 * (2 * R * W + rows * W), kb * FLOP_SHARD_CELL * cells + FLOP_SUMSQ_CELL * rows * (W - 2)
+
+
+def phase_shard_kernels(device):
+    """The per-rank red-black sweep (row 9) on a seeded 2048^2 problem cut
+    as 8 ranks' 256-row bands, kb 1 and 8 (h = 2kb): on ranks 0, 3 and 7
+    the kernel's own rows and residual sum bit-equal to the plain version;
+    the 8 ranks' own rows stitched against kb whole-grid red-black sweeps
+    (the plain arithmetic on the whole field, ghost ring frozen) within
+    1e-6 of max|p|; ms per call of the kernel alone, with its host read,
+    and of the plain version, at kb 8 on rank 3's band."""
+    import numpy as np
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops.sweeps import optimal_sor
+    from sr_for_cfd_tpu_torch.parallel.spmd_kernels import (
+        shard_rb_sweep,
+        shard_rb_sweep_plain,
+    )
+
+    n = BIG_N
+    rows = n // SPMD_RANKS
+    p, ff, geo = seeded_problem(np.random.default_rng(9), n, n, 1.0, 1.0, device)
+    b = (geo["rho"] / geo["dt"]) * ff.divergence_sum()
+    kw = dict(nxg=n, inv_dx2=1.0 / geo["dx"] ** 2, inv_dy2=1.0 / geo["dy"] ** 2,
+              volp=geo["volp"], sor=min(SHARD_SOR, optimal_sor(n, n)))
+    gates, worst = [], 0.0
+    for kb in (1, 8):
+        h = 2 * kb
+        for rank in (0, 3, SPMD_RANKS - 1):
+            ext, b_ext = shard_block(p, b, rank, rows, h)
+            own_k, ss_k = shard_rb_sweep(ext, b_ext, rank * rows, h=h, kb=kb, **kw)
+            own_p, ss_p = shard_rb_sweep_plain(ext, b_ext, rank * rows, h=h, kb=kb, **kw)
+            torch.cuda.synchronize()
+            err = float(torch.max(torch.abs(own_k - own_p)).item())
+            bit = torch.equal(own_k, own_p) and torch.equal(ss_k, ss_p)
+            log(f"  shard_rb kb={kb} rank {rank}: own rows and ss bit-equal {bit} "
+                f"(max_abs_err {err:.3e}, ss {float(ss_k):.9e} / {float(ss_p):.9e})")
+            if not bit:
+                fail(f"shard_rb kb={kb} rank {rank}: kernel and plain version differ")
+            worst = max(worst, err)
+            gates.append(dict(gate=f"kb={kb} rank {rank}", bit_equal=bit, max_abs_err=err))
+        stitched = torch.cat([
+            shard_rb_sweep(*shard_block(p, b, r, rows, h), r * rows, h=h, kb=kb, **kw)[0]
+            for r in range(SPMD_RANKS)])
+        f = p
+        b_whole = torch.zeros((n + 4, n + 2), dtype=p.dtype, device=p.device)
+        b_whole[2:-2, 1:-1] = b
+        for _ in range(kb):
+            inner, _ = shard_rb_sweep_plain(torch.cat([f[:1], f, f[-1:]]), b_whole, 0,
+                                            h=2, kb=1, **kw)
+            f = torch.cat([f[:1], inner, f[-1:]])
+        torch.cuda.synchronize()
+        err = float(torch.max(torch.abs(stitched - f[1:-1])).item())
+        scale = float(torch.max(torch.abs(f)).item())
+        log(f"  shard_rb kb={kb}: 8 ranks stitched vs {kb} whole-grid sweeps, "
+            f"max_abs_err {err:.3e} (limit 1e-6 x {scale:.3e})")
+        if not err <= 1e-6 * scale:
+            fail(f"shard_rb kb={kb}: stitched own rows differ from the whole-grid sweeps")
+        gates.append(dict(gate=f"kb={kb} stitched vs whole grid", max_abs_err=err))
+
+    kb, h, rank = 8, 16, 3
+    ext, b_ext = shard_block(p, b, rank, rows, h)
+    call = dict(h=h, kb=kb, **kw)
+    ms = cuda_ms(lambda: shard_rb_sweep(ext, b_ext, rank * rows, **call), 50)
+    ms_read = cuda_ms(lambda: shard_rb_sweep(ext, b_ext, rank * rows, **call)[1].item(), 50)
+    plain = cuda_ms(lambda: shard_rb_sweep_plain(ext, b_ext, rank * rows, **call), 3)
+    b_ms, b_by = bound_ms(*shard_work(rows + 2 * h, n + 2, rows, kb))
+    ext1, b_ext1 = shard_block(p, b, rank, rows, 2)
+    ms1 = cuda_ms(lambda: shard_rb_sweep(ext1, b_ext1, rank * rows, h=2, kb=1, **kw), 50)
+    log(f"  shard_rb {rows}+2x{h} rows x {n + 2}, kb={kb}: kernel call {ms:.5f} ms "
+        f"({kb + 1} launches), with its host read {ms_read:.5f}, plain {plain:.5f}; "
+        f"bound {b_ms:.6f} ({b_by}); a kb=1 call (2 launches) {ms1:.5f}")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                ms_with_host_read=ms_read, gates=gates)
+
+
+def spmd_case(kw, steps):
+    """A lid-driven cavity case (the make_cavity_solver preset) for
+    SpmdSolver: `steps` outer steps in one chunk."""
+    from sr_for_cfd_tpu_torch.config import (
+        BoundaryConditions,
+        CaseConfig,
+        FluidProperties,
+        MeshParameters,
+        SolverSettings,
+    )
+
+    kw = dict(kw)
+    mesh = MeshParameters(nx=kw.pop("nx"), ny=kw.pop("ny"), lx=1.0, ly=1.0)
+    fluid = FluidProperties(Re=kw.pop("Re"), rho=1.0)
+    settings = SolverSettings.make(max_iterations=steps, chunk_size=steps, **kw)
+    return CaseConfig.build(mesh, fluid, settings, BoundaryConditions.lid_driven_cavity())
+
+
+# the 400^2 cavity of __graft_entry__.py:148-152 (Re=1000, QUICK, dt=1e-3,
+# float32) on the per-rank sweep: use_pallas, pressure_solver="sweeps"
+SPMD_SWEEPS = dict(Re=1000.0, nx=400, ny=400, dt=1e-3, scheme="QUICK", dtype="float32",
+                   use_pallas=True, pressure_solver="sweeps")
+SPMD_SWEEPS_STEPS = 100
+# scripts/scaling_bench.py's 2048^2 cavity (Re=1000, QUICK, dt=1e-3, float32)
+# with use_pallas and the sharded V-cycle, the bench's 200 steps
+SPMD_MG = dict(Re=1000.0, nx=BIG_N, ny=BIG_N, dt=1e-3, scheme="QUICK", dtype="float32",
+               use_pallas=True, pressure_solver="multigrid")
+SPMD_MG_STEPS = 200
+
+
+def run_spmd_path(name, device, kw, steps):
+    """SpmdSolver(case, group) on one rank from the cold start; launch
+    counters and collective counts set to 0 just before the solve and read
+    just after; the per-rank sweep must have launched."""
+    import torch
+
+    from sr_for_cfd_tpu_torch import SpmdSolver
+    from sr_for_cfd_tpu_torch.parallel import mesh
+    from sr_for_cfd_tpu_torch.workflow.hybrid import kernel_launch_counts
+
+    solver = SpmdSolver(spmd_case(kw, steps), device=device)
+    torch.cuda.synchronize()
+    reset_counters()
+    mesh.reset_counts()
+    t = time.perf_counter()
+    local = solver.solve()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t
+    launches = kernel_launch_counts()
+    comm = dict(mesh.COUNTS)
+    iters = local.count
+    if iters != steps or solver.steps_run != steps:
+        fail(f"{name}: ran {iters} steps, expected {steps}")
+    if not all(bool(torch.isfinite(x).all().item()) for x in (local.u, local.v, local.p)):
+        fail(f"{name}: non-finite fields")
+    if launches["shard_rb_pressure"] <= 0:
+        fail(f"{name}: the per-rank sweep kernel (row 9) did not launch")
+    per = {k: round(v / iters, 2) for k, v in solver.inner_counts.items()}
+    log(f"  {name}: {iters} steps in {elapsed:.3f} s, {1e3 * elapsed / iters:.3f} ms/iter; "
+        f"inner per step {per} (p: {'V-cycles' if kw['pressure_solver'] == 'multigrid' else 'sweeps'}); "
+        f"row 9 launches per step {launches['shard_rb_pressure'] / iters:.2f}; collectives "
+        f"per step { {k: round(v / iters, 2) for k, v in comm.items()} }; finite fields; "
+        f"rms {local.rms.tolist()}")
+    return {k: v for k, v in launches.items() if not k.startswith("rre")}
+
+
+def phase_spmd_sweeps(device):
+    return run_spmd_path("SPMD sweeps 400^2 cavity, 1 rank", device, SPMD_SWEEPS,
+                         SPMD_SWEEPS_STEPS)
+
+
+def phase_spmd_multigrid(device):
+    return run_spmd_path(f"SPMD multigrid {BIG_N}^2 cavity, 1 rank", device, SPMD_MG,
+                         SPMD_MG_STEPS)
+
+
+def spmd_reference(device):
+    """The 32^2 cavity (QUICK, Re=1000, dt=1e-3, float32, use_pallas,
+    sweeps, 40 steps) through SpmdSolver on the card (NCCL, the kernel) and
+    on the CPU (a gloo group of the same rank, the plain version): equal
+    inner counts in the first 3 steps and an equal step count, fields within
+    1e-4 of the largest |value|."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from sr_for_cfd_tpu_torch import SpmdSolver
+
+    kw = dict(SPMD_SWEEPS, nx=32, ny=32)
+    gloo = dist.new_group([0], backend="gloo")
+    runs = {}
+    for dev, group in ((device, None), ("cpu", gloo)):
+        first = SpmdSolver(spmd_case(kw, 40), group=group, device=dev)
+        counts = [first.step() for _ in range(3)]
+        solver = SpmdSolver(spmd_case(kw, 40), group=group, device=dev)
+        solver.solve()
+        runs[dev] = (counts, solver.local.count, solver.interior_fields())
+    dist.destroy_process_group(gloo)
+    (ck, ik, fk), (cp, ip, fp) = runs[device], runs["cpu"]
+    if ck != cp or ik != ip:
+        fail(f"SPMD reference: counts differ, card {ck} {ik}, CPU {cp} {ip}")
+    worst = 0.0
+    for c in "uvp":
+        err = float(np.max(np.abs(fk[c] - fp[c])))
+        scale = max(1.0, float(np.max(np.abs(fp[c]))))
+        worst = max(worst, err / scale)
+        if not (np.all(np.isfinite(fk[c])) and err <= 1e-4 * scale):
+            fail(f"SPMD reference: {c} differs by {err:.3e}")
+    log(f"  SPMD 32x32 cavity (use_pallas sweeps) card vs CPU: {ik} steps, inner counts "
+        f"of the first 3 steps {ck} (equal), worst relative field difference "
+        f"{worst:.3e} (limit 1e-4)")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sr_for_cfd_tpu_torch")):
         fail("run from a checkout of the repository (sr_for_cfd_tpu_torch/ not found)")
@@ -1084,11 +1322,26 @@ def main():
     kernel_lib.load_library()
     log(f"phase build: nvcc {secs:.2f} s, load {time.perf_counter() - t - secs:.2f} s")
 
+    # the row-decomposed solver's process group: one rank on this card,
+    # NCCL, through a file:// store in a temporary directory (one host, so
+    # the loopback interface)
+    import shutil
+
+    import torch.distributed as dist
+
+    from sr_for_cfd_tpu_torch.parallel import mesh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store_dir = tempfile.mkdtemp(prefix="srcfd_nccl_")
+    mesh.init_single_rank(device, store_dir)
+    log(f"process group: {dist.get_backend()} world size {dist.get_world_size()}")
+
     t = time.perf_counter()
     kernels = phase_kernels(device)
     fused = phase_fused(device)
     big_rows, big_gates = phase_big_grid_kernels(device)
     tiled_row = phase_tiled_kernels(device)
+    shard_row = phase_shard_kernels(device)
     torch.cuda.synchronize()
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
 
@@ -1096,7 +1349,9 @@ def main():
     for name, phase in (("non_fused", phase_non_fused),
                         ("north_star", phase_north_star),
                         ("big_grid", phase_big_grid),
-                        ("tiled", phase_tiled)):
+                        ("tiled", phase_tiled),
+                        ("spmd_sweeps", phase_spmd_sweeps),
+                        ("spmd_multigrid", phase_spmd_multigrid)):
         t = time.perf_counter()
         by_path[name] = phase(device)
         torch.cuda.synchronize()
@@ -1105,6 +1360,7 @@ def main():
 
     t = time.perf_counter()
     phase_reference(device)
+    spmd_reference(device)
     torch.cuda.synchronize()
     log(f"phase reference: {time.perf_counter() - t:.1f} s")
 
@@ -1155,7 +1411,15 @@ def main():
              source="sr_for_cfd_tpu_torch/csrc/tiled_rb.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_tiled.py:198",
              library_ms=None, **launches("tiled_rb_pressure"), **tiled_row),
+        # ms, plain_ms and bound_ms are per call at kb=8 on a 256-row band
+        # of the 2048^2 field (8 ranks' split)
+        dict(name="shard_rb_pressure", route="cuda",
+             source="sr_for_cfd_tpu_torch/csrc/shard_rb.cu",
+             replaces="sr_for_cfd_tpu/parallel/spmd_pallas.py:93",
+             library_ms=None, **launches("shard_rb_pressure"), **shard_row),
     ]
+    dist.destroy_process_group()
+    shutil.rmtree(store_dir, ignore_errors=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,8 +31,8 @@ from .solver.cases import (  # noqa: F401
 from .solver.simple import CFDSolver, DivergenceError  # noqa: F401
 from .solver.state import SolverState, init_state, warm_start_state  # noqa: F401
 
-# the JAX package's sharded solvers (parallel/), not ported yet
-_UNPORTED = ("SpmdSolver", "ShardedSolver", "batched_spmd_cavity_solve")
+# the JAX package's GSPMD and case-batched sharded solvers, not ported yet
+_UNPORTED = ("ShardedSolver", "batched_spmd_cavity_solve")
 
 
 def __getattr__(name):
@@ -41,6 +41,10 @@ def __getattr__(name):
         from .sr import inference
 
         return getattr(inference, name)
+    if name == "SpmdSolver":
+        from .parallel.spmd_step import SpmdSolver
+
+        return SpmdSolver
     if name == "run_hybrid_experiment":
         from .workflow.hybrid import run_hybrid_experiment
 

@@ -6,11 +6,9 @@ package's names, defaults and semantics, so a case built here describes the
 same flow as one built there, and both refuse the same configurations
 with the same `ValueError` texts (the TPU VMEM gate of `CaseConfig.build`
 included: the port mirrors the JAX package's TPU limits as refusals, so
-that both accept the same set). One thing differs:
-
-* Settings whose kernels this port does not have yet raise
-  `NotImplementedError` naming the ROADMAP item that will port them,
-  instead of being silently rerouted (see `refuse_unported`).
+that both accept the same set). A case with `spmd_devices > 1` is run by
+the row-decomposed `parallel.spmd_step.SpmdSolver`; the single-device
+solver refuses to step it, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -354,15 +352,6 @@ def big_grid_kernels(settings: SolverSettings, mesh: MeshParameters) -> bool:
         or mesh.nx * mesh.ny > STREAM_MG_CELL_THRESHOLD)
 
 
-def refuse_unported(settings: SolverSettings, mesh: MeshParameters) -> None:
-    """Raise NotImplementedError for settings whose kernels or modules this
-    port does not have yet, naming the ROADMAP item that ports them."""
-    if settings.spmd_devices > 1:
-        raise NotImplementedError(
-            "not ported to the PyTorch package yet: spmd_devices>1 (the "
-            "sharded solver parallel/: ROADMAP queue A, item A11)")
-
-
 @dataclass(frozen=True)
 class CaseConfig:
     """One fully-specified flow case."""
@@ -419,7 +408,6 @@ class CaseConfig:
                     "mg_n_post >= 1 (its entry-residual RMS and halo "
                     "widths are built from the smoothing sweeps)"
                 )
-        refuse_unported(settings, mesh)
         return cls(
             mesh=mesh,
             fluid=fluid,

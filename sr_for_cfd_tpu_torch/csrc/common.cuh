@@ -24,6 +24,15 @@ __device__ __forceinline__ float srcfd_block_sum(float v, float* sh) {
   return total;
 }
 
+// Fixed-order sum of x[0..n) by one 1-D block of SRCFD_THREADS threads:
+// thread t adds x[t], x[t + SRCFD_THREADS], ... in turn, then
+// srcfd_block_sum. The partials of a kernel's blocks are summed with it.
+__device__ __forceinline__ float srcfd_fixed_sum(const float* x, int n, float* sh) {
+  float acc = 0.0f;
+  for (int k = threadIdx.x; k < n; k += SRCFD_THREADS) acc += x[k];
+  return srcfd_block_sum(acc, sh);
+}
+
 // Launch grid of SRCFD_TX x SRCFD_TY blocks covering a (rows, cols) array,
 // cols contiguous.
 static inline dim3 srcfd_grid(int rows, int cols) {

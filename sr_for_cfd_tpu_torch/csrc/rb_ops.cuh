@@ -1,31 +1,46 @@
 // Device code shared by the red-black SOR pressure kernels: the residual and
 // the update of one cell. rb_sor.cu (the in-place half-sweeps and the
-// single-block loop) and tiled_rb.cu (one whole sweep per pass) call the same
-// expressions, so the two cannot drift apart.
+// single-block loop), tiled_rb.cu (one whole sweep per pass) and shard_rb.cu
+// (one whole sweep of a rank's halo-extended block) call the same
+// expressions, so they cannot drift apart.
 #pragma once
 
 #include "common.cuh"
 
-// divide = 0: p += (sor r) * (1 / ap_d), as the standalone TPU kernel
-// (pallas_kernels.py) does; divide = 1: p += (sor r) / ap_d, as the
-// point-iteration pressure stage of the fused step (pallas_step.py:309) and
-// the tiled sweep (pallas_tiled.py:93) do
+// The update r -> dp of one cell, by `mode`:
+// 0: (sor r) * (1 / ap_d), as the standalone TPU kernel (pallas_kernels.py)
+//    does;
+// 1: (sor r) / ap_d, as the point-iteration pressure stage of the fused step
+//    (pallas_step.py:309) and the tiled sweep (pallas_tiled.py:93) do;
+// 2: r * inv_ap with inv_ap = sor / ap_d worked out in double and rounded to
+//    float32 once, as the per-rank sweep (spmd_pallas.py:73) does.
 struct RbCoef {
   float inv_dx2, inv_dy2, volp, sor, inv_ap, ap_d;
-  int divide;
+  int mode;
 };
 
 __device__ __forceinline__ float rb_step(float r, const RbCoef& c) {
-  return c.divide ? (c.sor * r) / c.ap_d : c.sor * r * c.inv_ap;
+  if (c.mode == 1) return (c.sor * r) / c.ap_d;
+  if (c.mode == 2) return r * c.inv_ap;
+  return c.sor * r * c.inv_ap;
 }
 
-// residual b - Fd at index idx of row-major arrays p and b that share the
-// row stride ny2
+// residual b - Fd at index idx of row-major arrays p and b, whose neighbours
+// one row up and one row down lie `up` and `dn` elements away (the row
+// stride, or 0 where a block's edge row replicates itself); the column
+// neighbours are idx -+ 1
+__device__ __forceinline__ float rb_residual_at(const float* p, const float* b,
+                                                int idx, int up, int dn,
+                                                const RbCoef& c) {
+  const float f = p[idx];
+  const float fd = c.volp * ((p[idx + dn] - 2.0f * f + p[idx - up]) * c.inv_dx2 +
+                             (p[idx + 1] - 2.0f * f + p[idx - 1]) * c.inv_dy2);
+  return b[idx] - fd;
+}
+
+// rb_residual_at with both row neighbours one row stride (ny2) away
 __device__ __forceinline__ float rb_residual(const float* p, const float* b,
                                              int idx, int ny2,
                                              const RbCoef& c) {
-  const float f = p[idx];
-  const float fd = c.volp * ((p[idx + ny2] - 2.0f * f + p[idx - ny2]) * c.inv_dx2 +
-                             (p[idx + 1] - 2.0f * f + p[idx - 1]) * c.inv_dy2);
-  return b[idx] - fd;
+  return rb_residual_at(p, b, idx, ny2, ny2, c);
 }

@@ -65,9 +65,7 @@ __global__ void __launch_bounds__(SRCFD_THREADS)
 rms_finalize_kernel(const float* __restrict__ partials, int n, float n_cells,
                     float* __restrict__ out) {
   __shared__ float sh[SRCFD_THREADS];
-  float acc = 0.0f;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) acc += partials[k];
-  const float s = srcfd_block_sum(acc, sh);
+  const float s = srcfd_fixed_sum(partials, n, sh);
   if (threadIdx.x == 0) out[0] = sqrtf(s / n_cells);
 }
 

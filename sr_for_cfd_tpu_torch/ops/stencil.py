@@ -79,9 +79,13 @@ def flux_signs(ff: FaceFluxes) -> Tuple[torch.Tensor, ...]:
     return tuple(f >= 0 for f in ff)
 
 
-def upwind_flux(phi: torch.Tensor, ff: FaceFluxes, signs=None) -> torch.Tensor:
-    """First-order upwind convective flux Fc (face value = donor cell)."""
-    c, e, w, n, s = shifts1(phi)
+def upwind_flux(phi: torch.Tensor, ff: FaceFluxes, signs=None,
+                shifts=None) -> torch.Tensor:
+    """First-order upwind convective flux Fc (face value = donor cell).
+    `shifts` optionally supplies pre-built (c, e, w, n, s) views (the
+    row-decomposed solver builds them from halo-extended bands,
+    `parallel/spmd_step.py`)."""
+    c, e, w, n, s = shifts1(phi) if shifts is None else shifts
     pe, pn, pw, ps = flux_signs(ff) if signs is None else signs
     return (torch.where(pe, c, e) * ff.e + torch.where(pw, c, w) * ff.w
             + torch.where(pn, c, n) * ff.n + torch.where(ps, c, s) * ff.s)
@@ -96,9 +100,11 @@ def upwind_diag(ff: FaceFluxes, volp: float, signs=None) -> torch.Tensor:
     return sum_flux * volp
 
 
-def quick_flux(phi: torch.Tensor, ff: FaceFluxes, signs=None) -> torch.Tensor:
-    """QUICK convective flux Fc (weights 0.75 / 0.375 / -0.125)."""
-    v = shifts2(phi)
+def quick_flux(phi: torch.Tensor, ff: FaceFluxes, signs=None,
+               shifts: "Shifted" = None) -> torch.Tensor:
+    """QUICK convective flux Fc (weights 0.75 / 0.375 / -0.125); `shifts`
+    optionally supplies a pre-built `Shifted`."""
+    v = shifts2(phi) if shifts is None else shifts
     pe, pn, pw, ps = flux_signs(ff) if signs is None else signs
     ue = torch.where(pe, 0.75 * v.c + 0.375 * v.e - 0.125 * v.w,
                      0.75 * v.e + 0.375 * v.c - 0.125 * v.ee)
@@ -125,10 +131,11 @@ def quick_diag(ff: FaceFluxes, volp: float, signs=None) -> torch.Tensor:
 
 
 def diffusion(
-    phi: torch.Tensor, dx: float, dy: float, volp: float
+    phi: torch.Tensor, dx: float, dy: float, volp: float, shifts=None
 ) -> Tuple[torch.Tensor, float]:
-    """5-point Laplacian flux Fd and (scalar) diagonal ap_d."""
-    c, e, w, n, s = shifts1(phi)
+    """5-point Laplacian flux Fd and (scalar) diagonal ap_d; `shifts`
+    optionally supplies pre-built (c, e, w, n, s) views."""
+    c, e, w, n, s = shifts1(phi) if shifts is None else shifts
     fd = volp * ((e - 2.0 * c + w) / (dx * dx) + (n - 2.0 * c + s) / (dy * dy))
     ap_d = -volp * (2.0 / (dx * dx) + 2.0 / (dy * dy))
     return fd, ap_d

@@ -157,6 +157,12 @@ def simple_step(
     mesh, fluid, st = case.mesh, case.fluid, case.settings
     if nu is None:
         nu = torch.tensor(fluid.nu, dtype=state.u.dtype, device=state.u.device)
+    if st.spmd_devices > 1:
+        raise ValueError(
+            f"case declares spmd_devices={st.spmd_devices}: run it "
+            "through parallel.spmd_step.SpmdSolver on a matching mesh, "
+            "not the single-device solver"
+        )
     if st.fused_step:
         return _fused_step(state, case, profile, nu, with_counts=with_counts)
     dx, dy, dt = mesh.dx, mesh.dy, st.dt

@@ -10,6 +10,9 @@ Differences from the JAX package:
   matplotlib. The comparison plot, the HDF5 group and the PNGs of a run
   are not ported yet (ROADMAP queue A, item A8); `save_results=True`
   writes each phase's .dat artifacts.
+* Fine phases with `spmd_devices > 1` raise `NotImplementedError`: the
+  JAX package runs them on its `SpmdSolver` behind `SpmdWorkflowAdapter`,
+  which is not ported yet (ROADMAP queue A, item A11).
 * The SR model comes from a Flax msgpack checkpoint (`model_file`), an
   explicit `model`, or the bicubic fallback; the split Keras .h5
   encoder/decoder convention is not ported.
@@ -45,6 +48,7 @@ def kernel_launch_counts() -> Dict[str, int]:
     from ..ops.pressure_kernels import solve_pressure_kernel
     from ..ops.step_kernels import simple_step_kernel
     from ..ops.tiled_kernels import tiled_solve_pressure
+    from ..parallel.spmd_kernels import shard_rb_sweep
 
     return {"rb_sor_pressure": solve_pressure_kernel.launches,
             "mg_vcycle_pressure": mg_solve_pressure_kernel.launches,
@@ -54,6 +58,7 @@ def kernel_launch_counts() -> Dict[str, int]:
             "stream_level1": sk.level1_correction.launches,
             "stream_pass_b": sk.stream_pass_b.launches,
             "tiled_rb_pressure": tiled_solve_pressure.launches,
+            "shard_rb_pressure": shard_rb_sweep.launches,
             "rre_attempts": rre_extrapolate.attempts,
             "rre_taken": rre_extrapolate.taken}
 
@@ -65,6 +70,11 @@ def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
 def _make_solver(case: str, Re: float, nx: int, ny: int, dt: float,
                  scheme: str, convergence_criteria, max_iterations: int,
                  bc: Optional[BoundaryConditions], device, **kw) -> CFDSolver:
+    if kw.get("spmd_devices", 1) > 1:
+        raise NotImplementedError(
+            "not ported to the PyTorch package yet: fine phases with "
+            "spmd_devices>1 (the row-decomposed SpmdSolver behind the "
+            "workflow, SpmdWorkflowAdapter: ROADMAP queue A, item A11)")
     if case == "bfs":
         return make_bfs_solver(
             Re=Re, nx=nx, ny=ny, dt=dt, scheme=scheme,

@@ -60,17 +60,52 @@ def test_settings_validation_matches_jax():
                 mod.SolverSettings.make(**bad)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(spmd_devices=2, pressure_solver="tiled"), "A11"),
-    (dict(spmd_devices=4, pressure_solver="multigrid"), "A11"),
-    (dict(spmd_devices=2), "A11"),
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A one-rank gloo world for the row-decomposed solver's checks."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kw,where", [
+    (dict(spmd_devices=2), "single-device step"),
+    (dict(pressure_solver="tiled"), "SpmdSolver"),
+    (dict(spmd_devices=2, pressure_solver="multigrid"), "SpmdSolver"),
 ])
-def test_unported_settings_are_refused(kw, item):
-    settings = tcfg.SolverSettings.make(**kw)
-    with pytest.raises(NotImplementedError, match=item):
-        tcfg.CaseConfig.build(tcfg.MeshParameters(nx=16, ny=16),
-                              tcfg.FluidProperties(), settings,
-                              tcfg.BoundaryConditions())
+def test_unported_settings_are_refused(kw, where, one_rank_group):
+    """spmd_devices > 1 builds in both packages; the single-device solver
+    refuses to step it, and SpmdSolver refuses pressure_solver='tiled' and
+    a group whose size is not spmd_devices, with the JAX package's texts
+    (a one-rank group against a one-device mesh)."""
+    from sr_for_cfd_tpu.parallel.mesh import make_mesh
+    from sr_for_cfd_tpu.parallel.spmd_step import SpmdSolver as JaxSpmd
+    from sr_for_cfd_tpu.solver import simple as jsimple
+
+    from sr_for_cfd_tpu_torch.parallel.spmd_step import SpmdSolver
+    from sr_for_cfd_tpu_torch.solver import simple as tsimple
+
+    def build(mod):
+        return mod.CaseConfig.build(mod.MeshParameters(nx=16, ny=16),
+                                    mod.FluidProperties(), mod.SolverSettings.make(**kw),
+                                    mod.BoundaryConditions())
+
+    j_case, t_case = build(jcfg), build(tcfg)
+    if where == "single-device step":
+        with pytest.raises(ValueError) as j:
+            jsimple.simple_step(jstate.init_state(j_case), j_case,
+                                jstate.inlet_profile(j_case))
+        with pytest.raises(ValueError) as t:
+            tsimple.simple_step(tstate.init_state(t_case, "cpu"), t_case, None)
+    else:
+        with pytest.raises(ValueError) as j:
+            JaxSpmd(j_case, make_mesh(1, "x"))
+        with pytest.raises(ValueError) as t:
+            SpmdSolver(t_case, device="cpu")
+    assert str(t.value) == str(j.value)
 
 
 @pytest.mark.parametrize("kw", [
@@ -169,7 +204,7 @@ def test_settings_refused_like_jax_seeded():
             assert "A11" in t_msg, t_msg
             continue
         assert (t_kind, t_msg) == (j_kind, j_msg), (n, kw)
-    assert min(seen.values()) > 20, seen
+    assert min(seen["ok"], seen["refused"]) > 20, seen
 
 
 def test_big_grid_kernel_path_builds_and_routes(monkeypatch):

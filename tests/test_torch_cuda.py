@@ -344,3 +344,41 @@ def test_tiled_wrapper_raises_on_what_the_kernel_does_not_take(card):
     fft = face_fluxes(pt.contiguous(), pt.contiguous(), 0.1, 0.1)
     with pytest.raises(ValueError, match="contiguous"):
         tiled_solve_pressure(pt, fft, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kb", [1, 3, 8])
+def test_shard_sweep_matches_plain(card, kb):
+    """The per-rank red-black sweep (row 9) on a 130x97 block, which no
+    tile divides, of an interior rank (row0 500 of 2048 rows): own rows and
+    the residual sum bit-equal to the plain version, kb + 1 launches."""
+    from sr_for_cfd_tpu_torch.parallel.spmd_kernels import (
+        shard_rb_sweep,
+        shard_rb_sweep_plain,
+    )
+
+    g = np.random.default_rng(kb)
+    ext, b = (torch.tensor(g.standard_normal((130, 97)), dtype=torch.float32,
+                           device=card) for _ in range(2))
+    kw = dict(nxg=2048, inv_dx2=2048.0 ** 2, inv_dy2=2048.0 ** 2, volp=2048.0 ** -2,
+              sor=1.9, h=2 * kb, kb=kb)
+    before = shard_rb_sweep.launches
+    own, ss = shard_rb_sweep(ext, b, 500, **kw)
+    assert shard_rb_sweep.launches == before + kb + 1
+    ref, ss_ref = shard_rb_sweep_plain(ext, b, 500, **kw)
+    torch.cuda.synchronize()
+    assert own.shape == (130 - 4 * kb, 97)
+    assert torch.equal(own, ref) and torch.equal(ss, ss_ref)
+
+
+@pytest.mark.cuda
+def test_shard_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    from sr_for_cfd_tpu_torch.parallel.spmd_kernels import shard_rb_sweep
+
+    kw = dict(nxg=64, inv_dx2=1.0, inv_dy2=1.0, volp=1.0, sor=1.5, h=2, kb=1)
+    e64 = torch.zeros((12, 10), dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        shard_rb_sweep(e64, e64, 0, **kw)
+    et = torch.zeros((10, 12), dtype=torch.float32, device=card).T
+    with pytest.raises(ValueError, match="contiguous"):
+        shard_rb_sweep(et, et.contiguous(), 0, **kw)

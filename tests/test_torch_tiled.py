@@ -169,9 +169,14 @@ def test_create_custom_case_matches_jax(tmp_path):
 
 def test_top_level_exports_match_jax():
     """Every name the JAX package exports at its top level, eagerly or
-    lazily, is exported by the port, except the sharded solvers, whose
-    lookup names ROADMAP item A11."""
-    sharded = ("SpmdSolver", "ShardedSolver", "batched_spmd_cavity_solve")
+    lazily, is exported by the port, SpmdSolver included, except the GSPMD
+    and case-batched sharded solvers, whose lookup names ROADMAP item
+    A11."""
+    sharded = ("ShardedSolver", "batched_spmd_cavity_solve")
+    from sr_for_cfd_tpu_torch.parallel.spmd_step import SpmdSolver
+
+    assert sr_for_cfd_tpu_torch.SpmdSolver is SpmdSolver
+    assert callable(sr_for_cfd_tpu_torch.SpmdSolver)
     public = [n for n, v in vars(sr_for_cfd_tpu).items()
               if not n.startswith("_") and not isinstance(v, types.ModuleType)]
     lazy = ["SRModel", "ml_super_resolution", "run_hybrid_experiment"]
