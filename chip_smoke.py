@@ -26,7 +26,10 @@ no result line:
    per-rank red-black sweep (row 9) on the seeded 2048x2048 field cut as
    8 ranks' 256-row bands (omega 1.9, kb 1 and 8): own rows and residual
    sum bit-equal to the plain version on ranks 0, 3 and 7, the 8 bands
-   stitched against kb whole-grid sweeps within 1e-6 of max|p|. Max abs
+   stitched against kb whole-grid sweeps within 1e-6 of max|p|; bit-equal
+   too at the blocks the one-rank main paths 5c and 5d give it (the 400x400
+   block at kb 8, every sharded level of the 2048x2048 V-cycle at kb 4,
+   built as those paths build them). Max abs
    difference against the stated tolerance, counts, kernel and plain
    times (CUDA events) and bounds.
 3. non-fused main path: `run_hybrid_experiment` for the BFS Re=400 hybrid
@@ -70,9 +73,9 @@ no result line:
    SR, 32x32 fine), the 48x48 cavity with mg_slab_rows=16 (the big-grid
    path at a small size) and the 48x48 tiled cavity (QUICK, Re=1000,
    dt=1e-3, 60 steps), on the card and with the plain PyTorch path on the
-   CPU, and the 32x32 SpmdSolver cavity of 5c (40 steps; its CPU side on a
-   gloo group of the same rank); iteration counts must be equal and fields
-   within 1e-4 relative.
+   CPU, and the SpmdSolver cavities of 5c at 32x32 (40 steps) and of 5d
+   at 64x64 (20 steps; their CPU side on a gloo group of the same rank);
+   iteration counts must be equal and fields within 1e-4 relative.
 
 The last lines are a `{"kernels": [...]}` line, the card's name and power
 limit as nvidia-smi prints them, and `{"ok": true, "device": {...}}`.
@@ -680,7 +683,7 @@ def phase_tiled_kernels(device):
     b = torch.zeros_like(p)
     b[1:-1, 1:-1] = (geo["rho"] / geo["dt"]) * ff.divergence_sum()
     bufs = [p.clone(), p.clone()]
-    partials = torch.empty(lib.srcfd_tiled_rb_partials(n + 2, n + 2), device=p.device)
+    partials = torch.empty(lib.srcfd_shard_rb_partials(n + 2, n + 2), device=p.device)
 
     def sweep():
         kernel_lib.check(lib.srcfd_tiled_rb_sweep(
@@ -1109,14 +1112,92 @@ def shard_work(R, W, rows, kb, all_valid=True):
     return 4 * (2 * R * W + rows * W), kb * FLOP_SHARD_CELL * cells + FLOP_SUMSQ_CELL * rows * (W - 2)
 
 
+def check_shard(gates, name, ext, b_ext, row0, kw):
+    """The per-rank sweep kernel against its plain version on one block:
+    own rows and residual sum bit-equal, or the run fails. Returns the
+    largest own-row difference."""
+    import torch
+
+    from sr_for_cfd_tpu_torch.parallel.spmd_kernels import (
+        shard_rb_sweep,
+        shard_rb_sweep_plain,
+    )
+
+    own_k, ss_k = shard_rb_sweep(ext, b_ext, row0, **kw)
+    own_p, ss_p = shard_rb_sweep_plain(ext, b_ext, row0, **kw)
+    torch.cuda.synchronize()
+    err = float(torch.max(torch.abs(own_k - own_p)).item())
+    bit = torch.equal(own_k, own_p) and torch.equal(ss_k, ss_p)
+    log(f"  shard_rb {name}: own rows and ss bit-equal {bit} "
+        f"(max_abs_err {err:.3e}, ss {float(ss_k):.9e} / {float(ss_p):.9e})")
+    if not bit:
+        fail(f"shard_rb {name}: kernel and plain version differ")
+    gates.append(dict(gate=name, bit_equal=bit, max_abs_err=err))
+    return err
+
+
+def main_path_shard_gates(gates, device):
+    """The per-rank sweep at the blocks the two one-rank main paths hand
+    it, built as they build them: the 400^2 sweeps path's (400 + 2x16,
+    402) block at kb 8 (both ends beyond the domain, the ghost row
+    repeated there, as spmd_step.assemble does); every sharded level of
+    the 2048^2 multigrid path at the smoother's kb, as
+    spmd_mg.smooth_kernel builds it (zero rows beyond the domain, zero
+    columns, b through extend_b_halo). Seeded fields; bit-equal or fail."""
+    import numpy as np
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops.multigrid import MG_SMOOTHER_SOR
+    from sr_for_cfd_tpu_torch.ops.sweeps import optimal_sor
+    from sr_for_cfd_tpu_torch.parallel import presets
+    from sr_for_cfd_tpu_torch.parallel.spmd_kernels import extend_b_halo
+    from sr_for_cfd_tpu_torch.parallel.spmd_mg import plan_spmd_mg
+    from sr_for_cfd_tpu_torch.parallel.spmd_step import sweep_blocks
+
+    worst = 0.0
+    kw = presets.SWEEPS_400
+    st = presets.cavity_case(kw, 1).settings
+    n = kw["nx"]
+    kb = sweep_blocks(st.pressure_check_every, n // 2)[0]
+    p, ff, geo = seeded_problem(np.random.default_rng(400), n, n, 1.0, 1.0, device)
+    b = (geo["rho"] / geo["dt"]) * ff.divergence_sum()
+    ext, b_ext = shard_block(p, b, 0, n, 2 * kb)
+    worst = max(worst, check_shard(
+        gates, f"{n}^2 sweeps path block, one rank, kb={kb}", ext, b_ext, 0,
+        dict(nxg=n, inv_dx2=1.0 / geo["dx"] ** 2, inv_dy2=1.0 / geo["dy"] ** 2,
+             volp=geo["volp"], sor=min(st.pressure_sor, optimal_sor(n, n)),
+             h=2 * kb, kb=kb)))
+
+    case = presets.cavity_case(presets.MULTIGRID_2048, 1)
+    st, m = case.settings, case.mesh
+    plan = plan_spmd_mg(m.nx, m.ny, m.dx, m.dy, m.volp, 1, np.dtype(np.float32),
+                        min_size=st.mg_min_size)
+    g = torch.Generator(device=device).manual_seed(2048)
+    for lvl in range(plan.n_shard):
+        (nxl, nyl), (inv_dx2, inv_dy2) = plan.setup.sizes[lvl], plan.setup.spacings[lvl]
+        kb = sweep_blocks(st.mg_n_pre, max(1, nxl // 2))[0]
+        h = 2 * kb
+        x = torch.randn((nxl, nyl), generator=g, device=device)
+        bl = torch.randn((nxl, nyl), generator=g, device=device)
+        zr, zc = x.new_zeros((h, nyl)), x.new_zeros((nxl + 2 * h, 1))
+        ext = torch.cat([zc, torch.cat([zr, x, zr]), zc], dim=1)
+        worst = max(worst, check_shard(
+            gates, f"{m.nx}^2 multigrid level {lvl} ({nxl}x{nyl}), one rank, kb={kb}",
+            ext, extend_b_halo(bl, h=h), 0,
+            dict(nxg=nxl, inv_dx2=inv_dx2, inv_dy2=inv_dy2,
+                 volp=plan.setup.volp_levels[lvl], sor=MG_SMOOTHER_SOR, h=h, kb=kb)))
+    return worst
+
+
 def phase_shard_kernels(device):
-    """The per-rank red-black sweep (row 9) on a seeded 2048^2 problem cut
+    """The per-rank red-black sweep (row 9). On a seeded 2048^2 problem cut
     as 8 ranks' 256-row bands, kb 1 and 8 (h = 2kb): on ranks 0, 3 and 7
     the kernel's own rows and residual sum bit-equal to the plain version;
     the 8 ranks' own rows stitched against kb whole-grid red-black sweeps
     (the plain arithmetic on the whole field, ghost ring frozen) within
-    1e-6 of max|p|; ms per call of the kernel alone, with its host read,
-    and of the plain version, at kb 8 on rank 3's band."""
+    1e-6 of max|p|. Bit-equal at the one-rank main paths' own blocks too
+    (`main_path_shard_gates`). Ms per call of the kernel alone, with its
+    host read, and of the plain version, at kb 8 on rank 3's band."""
     import numpy as np
     import torch
 
@@ -1137,17 +1218,8 @@ def phase_shard_kernels(device):
         h = 2 * kb
         for rank in (0, 3, SPMD_RANKS - 1):
             ext, b_ext = shard_block(p, b, rank, rows, h)
-            own_k, ss_k = shard_rb_sweep(ext, b_ext, rank * rows, h=h, kb=kb, **kw)
-            own_p, ss_p = shard_rb_sweep_plain(ext, b_ext, rank * rows, h=h, kb=kb, **kw)
-            torch.cuda.synchronize()
-            err = float(torch.max(torch.abs(own_k - own_p)).item())
-            bit = torch.equal(own_k, own_p) and torch.equal(ss_k, ss_p)
-            log(f"  shard_rb kb={kb} rank {rank}: own rows and ss bit-equal {bit} "
-                f"(max_abs_err {err:.3e}, ss {float(ss_k):.9e} / {float(ss_p):.9e})")
-            if not bit:
-                fail(f"shard_rb kb={kb} rank {rank}: kernel and plain version differ")
-            worst = max(worst, err)
-            gates.append(dict(gate=f"kb={kb} rank {rank}", bit_equal=bit, max_abs_err=err))
+            worst = max(worst, check_shard(gates, f"kb={kb} rank {rank}", ext, b_ext,
+                                           rank * rows, dict(kw, h=h, kb=kb)))
         stitched = torch.cat([
             shard_rb_sweep(*shard_block(p, b, r, rows, h), r * rows, h=h, kb=kb, **kw)[0]
             for r in range(SPMD_RANKS)])
@@ -1166,6 +1238,7 @@ def phase_shard_kernels(device):
         if not err <= 1e-6 * scale:
             fail(f"shard_rb kb={kb}: stitched own rows differ from the whole-grid sweeps")
         gates.append(dict(gate=f"kb={kb} stitched vs whole grid", max_abs_err=err))
+    worst = max(worst, main_path_shard_gates(gates, device))
 
     kb, h, rank = 8, 16, 3
     ext, b_ext = shard_block(p, b, rank, rows, h)
@@ -1183,36 +1256,6 @@ def phase_shard_kernels(device):
                 ms_with_host_read=ms_read, gates=gates)
 
 
-def spmd_case(kw, steps):
-    """A lid-driven cavity case (the make_cavity_solver preset) for
-    SpmdSolver: `steps` outer steps in one chunk."""
-    from sr_for_cfd_tpu_torch.config import (
-        BoundaryConditions,
-        CaseConfig,
-        FluidProperties,
-        MeshParameters,
-        SolverSettings,
-    )
-
-    kw = dict(kw)
-    mesh = MeshParameters(nx=kw.pop("nx"), ny=kw.pop("ny"), lx=1.0, ly=1.0)
-    fluid = FluidProperties(Re=kw.pop("Re"), rho=1.0)
-    settings = SolverSettings.make(max_iterations=steps, chunk_size=steps, **kw)
-    return CaseConfig.build(mesh, fluid, settings, BoundaryConditions.lid_driven_cavity())
-
-
-# the 400^2 cavity of __graft_entry__.py:148-152 (Re=1000, QUICK, dt=1e-3,
-# float32) on the per-rank sweep: use_pallas, pressure_solver="sweeps"
-SPMD_SWEEPS = dict(Re=1000.0, nx=400, ny=400, dt=1e-3, scheme="QUICK", dtype="float32",
-                   use_pallas=True, pressure_solver="sweeps")
-SPMD_SWEEPS_STEPS = 100
-# scripts/scaling_bench.py's 2048^2 cavity (Re=1000, QUICK, dt=1e-3, float32)
-# with use_pallas and the sharded V-cycle, the bench's 200 steps
-SPMD_MG = dict(Re=1000.0, nx=BIG_N, ny=BIG_N, dt=1e-3, scheme="QUICK", dtype="float32",
-               use_pallas=True, pressure_solver="multigrid")
-SPMD_MG_STEPS = 200
-
-
 def run_spmd_path(name, device, kw, steps):
     """SpmdSolver(case, group) on one rank from the cold start; launch
     counters and collective counts set to 0 just before the solve and read
@@ -1220,10 +1263,10 @@ def run_spmd_path(name, device, kw, steps):
     import torch
 
     from sr_for_cfd_tpu_torch import SpmdSolver
-    from sr_for_cfd_tpu_torch.parallel import mesh
+    from sr_for_cfd_tpu_torch.parallel import mesh, presets
     from sr_for_cfd_tpu_torch.workflow.hybrid import kernel_launch_counts
 
-    solver = SpmdSolver(spmd_case(kw, steps), device=device)
+    solver = SpmdSolver(presets.cavity_case(kw, steps), device=device)
     torch.cuda.synchronize()
     reset_counters()
     mesh.reset_counts()
@@ -1250,49 +1293,58 @@ def run_spmd_path(name, device, kw, steps):
 
 
 def phase_spmd_sweeps(device):
-    return run_spmd_path("SPMD sweeps 400^2 cavity, 1 rank", device, SPMD_SWEEPS,
-                         SPMD_SWEEPS_STEPS)
+    from sr_for_cfd_tpu_torch.parallel import presets
+
+    return run_spmd_path("SPMD sweeps 400^2 cavity, 1 rank", device, presets.SWEEPS_400,
+                         presets.SWEEPS_400_STEPS)
 
 
 def phase_spmd_multigrid(device):
-    return run_spmd_path(f"SPMD multigrid {BIG_N}^2 cavity, 1 rank", device, SPMD_MG,
-                         SPMD_MG_STEPS)
+    from sr_for_cfd_tpu_torch.parallel import presets
+
+    return run_spmd_path(f"SPMD multigrid {BIG_N}^2 cavity, 1 rank", device,
+                         presets.MULTIGRID_2048, presets.MULTIGRID_2048_STEPS)
 
 
 def spmd_reference(device):
-    """The 32^2 cavity (QUICK, Re=1000, dt=1e-3, float32, use_pallas,
-    sweeps, 40 steps) through SpmdSolver on the card (NCCL, the kernel) and
-    on the CPU (a gloo group of the same rank, the plain version): equal
-    inner counts in the first 3 steps and an equal step count, fields within
-    1e-4 of the largest |value|."""
+    """The two SPMD routes at a small size through SpmdSolver on the card
+    (NCCL, the kernel) and on the CPU (a gloo group of the same rank, the
+    plain version): the 32^2 cavity on the sweeps route (40 steps) and the
+    64^2 cavity on the multigrid route (20 steps), each with its main
+    path's settings (QUICK, Re=1000, dt=1e-3, float32, use_pallas). Equal
+    inner counts in the first 3 steps (sweeps, or V-cycles) and an equal
+    step count, fields within 1e-4 of the largest |value|."""
     import numpy as np
     import torch.distributed as dist
 
     from sr_for_cfd_tpu_torch import SpmdSolver
+    from sr_for_cfd_tpu_torch.parallel import presets
 
-    kw = dict(SPMD_SWEEPS, nx=32, ny=32)
     gloo = dist.new_group([0], backend="gloo")
-    runs = {}
-    for dev, group in ((device, None), ("cpu", gloo)):
-        first = SpmdSolver(spmd_case(kw, 40), group=group, device=dev)
-        counts = [first.step() for _ in range(3)]
-        solver = SpmdSolver(spmd_case(kw, 40), group=group, device=dev)
-        solver.solve()
-        runs[dev] = (counts, solver.local.count, solver.interior_fields())
+    for label, kw, steps in (
+            ("32x32 cavity (use_pallas sweeps)", dict(presets.SWEEPS_400, nx=32, ny=32), 40),
+            ("64x64 cavity (use_pallas multigrid)",
+             dict(presets.MULTIGRID_2048, nx=64, ny=64), 20)):
+        runs = {}
+        for dev, group in ((device, None), ("cpu", gloo)):
+            first = SpmdSolver(presets.cavity_case(kw, steps), group=group, device=dev)
+            counts = [first.step() for _ in range(3)]
+            solver = SpmdSolver(presets.cavity_case(kw, steps), group=group, device=dev)
+            solver.solve()
+            runs[dev] = (counts, solver.local.count, solver.interior_fields())
+        (ck, ik, fk), (cp, ip, fp) = runs[device], runs["cpu"]
+        if ck != cp or ik != ip or ik != steps:
+            fail(f"SPMD reference {label}: counts differ, card {ck} {ik}, CPU {cp} {ip}")
+        worst = 0.0
+        for c in "uvp":
+            err = float(np.max(np.abs(fk[c] - fp[c])))
+            scale = max(1.0, float(np.max(np.abs(fp[c]))))
+            worst = max(worst, err / scale)
+            if not (np.all(np.isfinite(fk[c])) and err <= 1e-4 * scale):
+                fail(f"SPMD reference {label}: {c} differs by {err:.3e}")
+        log(f"  SPMD {label} card vs CPU: {ik} steps, inner counts of the first 3 steps "
+            f"{ck} (equal), worst relative field difference {worst:.3e} (limit 1e-4)")
     dist.destroy_process_group(gloo)
-    (ck, ik, fk), (cp, ip, fp) = runs[device], runs["cpu"]
-    if ck != cp or ik != ip:
-        fail(f"SPMD reference: counts differ, card {ck} {ik}, CPU {cp} {ip}")
-    worst = 0.0
-    for c in "uvp":
-        err = float(np.max(np.abs(fk[c] - fp[c])))
-        scale = max(1.0, float(np.max(np.abs(fp[c]))))
-        worst = max(worst, err / scale)
-        if not (np.all(np.isfinite(fk[c])) and err <= 1e-4 * scale):
-            fail(f"SPMD reference: {c} differs by {err:.3e}")
-    log(f"  SPMD 32x32 cavity (use_pallas sweeps) card vs CPU: {ik} steps, inner counts "
-        f"of the first 3 steps {ck} (equal), worst relative field difference "
-        f"{worst:.3e} (limit 1e-4)")
 
 
 def main():
@@ -1408,7 +1460,7 @@ def main():
              library_ms=None, **launches("stream_level1"), **big_rows["stream_level1"]),
         # ms, plain_ms and bound_ms are per sweep at 2048^2 (kernel alone)
         dict(name="tiled_rb_pressure", route="cuda",
-             source="sr_for_cfd_tpu_torch/csrc/tiled_rb.cu",
+             source="sr_for_cfd_tpu_torch/csrc/shard_rb.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_tiled.py:198",
              library_ms=None, **launches("tiled_rb_pressure"), **tiled_row),
         # ms, plain_ms and bound_ms are per call at kb=8 on a 256-row band

@@ -2,9 +2,11 @@
 
     python3 scripts/torch_spmd_profile.py [--steps N] [--out DIR]
 
-Runs the two one-rank `SpmdSolver` paths of `chip_smoke.py` (the 400^2
-cavity on the per-rank sweep, the 2048^2 cavity on the sharded V-cycle;
-NCCL world size 1 through a `file://` store), warms each up for two steps,
+Runs the two one-rank `SpmdSolver` configurations of
+`sr_for_cfd_tpu_torch/parallel/presets.py`, which `chip_smoke.py` drives
+too (the 400^2 cavity on the per-rank sweep, the 2048^2 cavity on the
+sharded V-cycle; NCCL world size 1 through a `file://` store), warms each
+up for two steps,
 then traces N steps (default 3) with `torch.profiler` and prints, per path:
 ms per step on the host clock, the device's busy share (the union of the
 CUDA kernel and memcpy intervals over the traced wall time), device time by
@@ -45,10 +47,10 @@ def profile_path(name, kw, steps, out_dir):
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    import chip_smoke as cs
     from sr_for_cfd_tpu_torch import SpmdSolver
+    from sr_for_cfd_tpu_torch.parallel import presets
 
-    solver = SpmdSolver(cs.spmd_case(kw, 1000), device="cuda")
+    solver = SpmdSolver(presets.cavity_case(kw, 1000), device="cuda")
     for _ in range(2):
         solver.step()
     torch.cuda.synchronize()
@@ -107,17 +109,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     import torch.distributed as dist
 
-    import chip_smoke as cs
     from sr_for_cfd_tpu_torch.ops import kernel_lib
-    from sr_for_cfd_tpu_torch.parallel import mesh
+    from sr_for_cfd_tpu_torch.parallel import mesh, presets
 
     kernel_lib.load_library()
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     store = tempfile.mkdtemp(prefix="srcfd_prof_")
     mesh.init_single_rank("cuda", store)
     try:
-        profile_path("sweeps_400", cs.SPMD_SWEEPS, args.steps, args.out)
-        profile_path("multigrid_2048", cs.SPMD_MG, args.steps, args.out)
+        profile_path("sweeps_400", presets.SWEEPS_400, args.steps, args.out)
+        profile_path("multigrid_2048", presets.MULTIGRID_2048, args.steps, args.out)
     finally:
         dist.destroy_process_group()
 

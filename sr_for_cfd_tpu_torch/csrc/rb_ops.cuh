@@ -1,8 +1,8 @@
 // Device code shared by the red-black SOR pressure kernels: the residual and
 // the update of one cell. rb_sor.cu (the in-place half-sweeps and the
-// single-block loop), tiled_rb.cu (one whole sweep per pass) and shard_rb.cu
-// (one whole sweep of a rank's halo-extended block) call the same
-// expressions, so they cannot drift apart.
+// single-block loop) and shard_rb.cu (one whole sweep of a tiled row block,
+// for the tiled and the row-decomposed solvers) call the same expressions,
+// so they cannot drift apart.
 #pragma once
 
 #include "common.cuh"
@@ -25,22 +25,13 @@ __device__ __forceinline__ float rb_step(float r, const RbCoef& c) {
   return c.sor * r * c.inv_ap;
 }
 
-// residual b - Fd at index idx of row-major arrays p and b, whose neighbours
-// one row up and one row down lie `up` and `dn` elements away (the row
-// stride, or 0 where a block's edge row replicates itself); the column
-// neighbours are idx -+ 1
-__device__ __forceinline__ float rb_residual_at(const float* p, const float* b,
-                                                int idx, int up, int dn,
-                                                const RbCoef& c) {
-  const float f = p[idx];
-  const float fd = c.volp * ((p[idx + dn] - 2.0f * f + p[idx - up]) * c.inv_dx2 +
-                             (p[idx + 1] - 2.0f * f + p[idx - 1]) * c.inv_dy2);
-  return b[idx] - fd;
-}
-
-// rb_residual_at with both row neighbours one row stride (ny2) away
+// residual b - Fd at index idx of row-major arrays p and b that share the
+// row stride ny2
 __device__ __forceinline__ float rb_residual(const float* p, const float* b,
                                              int idx, int ny2,
                                              const RbCoef& c) {
-  return rb_residual_at(p, b, idx, ny2, ny2, c);
+  const float f = p[idx];
+  const float fd = c.volp * ((p[idx + ny2] - 2.0f * f + p[idx - ny2]) * c.inv_dx2 +
+                             (p[idx + 1] - 2.0f * f + p[idx - 1]) * c.inv_dy2);
+  return b[idx] - fd;
 }

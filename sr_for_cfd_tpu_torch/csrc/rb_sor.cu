@@ -60,7 +60,7 @@ rb_half_sweep_kernel(float* __restrict__ p, const float* __restrict__ b,
 }
 
 // rms = sqrt(sum(partials) / n_cells), summed in a fixed order by one block;
-// tiled_rb.cu's sweeps are finished by it too (srcfd_rms_finalize)
+// shard_rb.cu's tiled sweeps are finished by it too (srcfd_rms_finalize)
 __global__ void __launch_bounds__(SRCFD_THREADS)
 rms_finalize_kernel(const float* __restrict__ partials, int n, float n_cells,
                     float* __restrict__ out) {

@@ -5,8 +5,10 @@ red-black SOR for volp * Laplacian(p) = rho/dt sum(Ff) with frozen ghosts,
 omega clamped to `optimal_sor`, the update (sor r) / ap_d, the rms after
 every sweep, the unified stall policy, and an exit on tolerance, stall or
 `max_iter`. It returns (p, sweeps_run). Each sweep is one launch of
-`csrc/tiled_rb.cu` (the whole sweep and its residual partials in one pass
-over device memory, out of place between two buffers), then
+`csrc/shard_rb.cu`'s tiled red-black kernel on the whole padded grid (the
+row-decomposed solver's per-rank kernel, launched on a one-rank block
+with a one-row halo; the whole sweep and its residual partials in one
+pass over device memory, out of place between two buffers), then
 `srcfd_rms_finalize` over the partials and one host read; the exit is
 decided on the host in numpy float32.
 
@@ -65,7 +67,7 @@ def tiled_solve_pressure(
     nxt = cur.clone()
     lib = kernel_lib.load_library()
     stream = kernel_lib.stream_ptr(p.device)
-    n_part = lib.srcfd_tiled_rb_partials(nx2, ny2)
+    n_part = lib.srcfd_shard_rb_partials(nx2, ny2)
     partials = torch.empty(n_part, dtype=torch.float32, device=p.device)
     rms_dev = torch.empty(1, dtype=torch.float32, device=p.device)
     n_cells = float((nx2 - 2) * (ny2 - 2))

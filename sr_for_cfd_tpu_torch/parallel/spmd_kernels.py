@@ -23,11 +23,14 @@ first own interior row, from 0):
 
 On a CPU tensor the wrapper runs `shard_rb_sweep_plain`, a direct
 transcription of `_shard_sweep_kernel` whose sum follows the kernel's fixed
-order (32 x 32 tiles, 256 terms per tile summed as the kernel's threads sum
-them, then the tiles), so that on the card the two agree bit for bit. On a
-CUDA tensor it launches `csrc/shard_rb.cu` (kb sweeps, one launch each,
-then the sum of the partials: kb + 1 launches, counted in
-`shard_rb_sweep.launches`) or raises.
+order (32 x 32 tiles of the block's inner cells, 256 terms per tile summed
+as the kernel's threads sum them, then the tiles). On a CUDA tensor it
+launches `csrc/shard_rb.cu` (kb sweeps, one launch each, then the sum of
+the partials: kb + 1 launches, counted in `shard_rb_sweep.launches`) or
+raises. The kernel leaves the block's first and last rows as they are,
+where the plain version updates them with the row beyond replicated: both
+differ from the global sweep there, by the same erosion, so the own rows
+and `ss` agree bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -41,7 +44,9 @@ import torch.nn.functional as F
 from ..ops import kernel_lib
 from .mesh import ring_exchange
 
-TILE = 32  # csrc/shard_rb.cu: TILE
+# csrc/shard_rb.cu's TILE, which the plain sum follows (the card's bit-equal
+# gates fail if the two differ)
+TILE = 32
 THREADS = 256  # csrc/common.cuh: SRCFD_THREADS
 
 
@@ -97,9 +102,10 @@ def _fixed_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _tile_sum(terms: torch.Tensor) -> torch.Tensor:
-    """The kernel's sum of a (R, W) array of per-cell terms: per 32 x 32
-    tile in the thread order of its black loop, then over the tiles in
-    launch-grid order."""
+    """The kernel's sum of a (R, W) array of per-cell terms, zero on the
+    block's edges: per 32 x 32 tile of the inner cells in the thread order
+    of its black loop, then over the tiles in launch-grid order."""
+    terms = terms[1:-1, 1:-1]
     R, W = terms.shape
     ty, tx = -(-R // TILE), -(-W // TILE)
     t = torch.zeros((ty * TILE, tx * TILE), dtype=terms.dtype, device=terms.device)
@@ -165,8 +171,6 @@ def shard_rb_sweep(ext: torch.Tensor, b_ext: torch.Tensor, row0: int, *,
         raise ValueError(f"expected a CPU or CUDA tensor, got {ext.device}")
     _check_block(ext, b_ext, h)
     lib = kernel_lib.load_library()
-    if lib.srcfd_shard_rb_tile() != TILE:
-        raise RuntimeError("csrc/shard_rb.cu's TILE differs from spmd_kernels.TILE")
     R, W = ext.shape
     rows = R - 2 * h
     inv_ap = _coefficient(inv_dx2, inv_dy2, volp, sor)
@@ -174,7 +178,8 @@ def shard_rb_sweep(ext: torch.Tensor, b_ext: torch.Tensor, row0: int, *,
     n_part = lib.srcfd_shard_rb_partials(R, W)
     partials = torch.empty(n_part, dtype=torch.float32, device=ext.device)
     ss = torch.empty(1, dtype=torch.float32, device=ext.device)
-    bufs = [torch.empty_like(ext) for _ in range(min(kb, 2))]
+    # the kernel writes the inner cells only: the buffers carry ext's edges
+    bufs = [ext.clone() for _ in range(min(kb, 2))]
     src = ext
     for s in range(kb):
         dst = bufs[s % 2]

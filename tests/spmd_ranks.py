@@ -19,22 +19,25 @@ import torch
 JOIN_TIMEOUT = 240  # seconds, for each rank's join
 
 
-def solve_case(maker, kw, steps=None):
+def solve_case(maker, kw):
     """SpmdSolver on the port's case `maker(**kw)` (a name in
-    `solver/cases.py`), solved; with `steps`, also the inner counts of the
-    first `steps` steps run alone first from a fresh solver."""
+    `solver/cases.py`), solved; with the inner counts of every step run."""
     from sr_for_cfd_tpu_torch.parallel.spmd_step import SpmdSolver
     from sr_for_cfd_tpu_torch.solver import cases
 
-    case = getattr(cases, maker)(device="cpu", **kw).case
-    first = None
-    if steps:
-        s = SpmdSolver(case, device="cpu")
-        first = [s.step() for _ in range(steps)]
-    solver = SpmdSolver(case, device="cpu")
+    solver = SpmdSolver(getattr(cases, maker)(device="cpu", **kw).case, device="cpu")
+    per_step = []
+    step = solver._step
+
+    def recorded(s, nu):
+        s, counts = step(s, nu)
+        per_step.append({k: int(v) for k, v in counts.items()})
+        return s, counts
+
+    solver._step = recorded
     solver.solve()
     out = dict(count=solver.local.count, fields=solver.global_fields(),
-               inner=dict(solver.inner_counts), first=first)
+               inner=dict(solver.inner_counts), per_step=per_step)
     if solver._rre_stage is not None:
         out["rre_taken"] = solver._rre_stage.taken
     return out

@@ -347,27 +347,46 @@ def test_tiled_wrapper_raises_on_what_the_kernel_does_not_take(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kb", [1, 3, 8])
-def test_shard_sweep_matches_plain(card, kb):
-    """The per-rank red-black sweep (row 9) on a 130x97 block, which no
-    tile divides, of an interior rank (row0 500 of 2048 rows): own rows and
-    the residual sum bit-equal to the plain version, kb + 1 launches."""
+@pytest.mark.parametrize("kb,layout", [(1, "interior"), (3, "interior"), (8, "interior"),
+                                       (8, "one rank, ghost rows"),
+                                       (4, "one rank, zero exterior")])
+def test_shard_sweep_matches_plain(card, kb, layout):
+    """The per-rank red-black sweep (row 9) against its plain version: own
+    rows and the residual sum bit-equal, kb + 1 launches. Blocks no tile
+    divides: a 130x97 block of an interior rank (row0 500 of 2048 rows),
+    and one rank's block of 100x97 cells (row0 0, both ends beyond the
+    domain) as the sweeps route builds it (the ghost row repeated beyond
+    the domain) and as the V-cycle smoother does (zero rows and columns
+    beyond it)."""
     from sr_for_cfd_tpu_torch.parallel.spmd_kernels import (
         shard_rb_sweep,
         shard_rb_sweep_plain,
     )
 
     g = np.random.default_rng(kb)
-    ext, b = (torch.tensor(g.standard_normal((130, 97)), dtype=torch.float32,
-                           device=card) for _ in range(2))
-    kw = dict(nxg=2048, inv_dx2=2048.0 ** 2, inv_dy2=2048.0 ** 2, volp=2048.0 ** -2,
-              sor=1.9, h=2 * kb, kb=kb)
+    h = 2 * kb
+    if layout == "interior":
+        ext, b = (torch.tensor(g.standard_normal((130, 97)), dtype=torch.float32,
+                               device=card) for _ in range(2))
+        row0, nxg, rows, width = 500, 2048, 130 - 2 * h, 97
+    else:
+        x, b = (torch.tensor(g.standard_normal((100, 97)), dtype=torch.float32,
+                             device=card) for _ in range(2))
+        row0, nxg, rows, width = 0, 100, 100, 99
+        if layout == "one rank, zero exterior":
+            ext = torch.nn.functional.pad(x, (1, 1, h, h))
+        else:
+            ext = torch.cat([x[:1].expand(h, -1), x, x[-1:].expand(h, -1)])
+            ext = torch.cat([ext[:, :1], ext, ext[:, -1:]], dim=1).contiguous()
+        b = torch.nn.functional.pad(b, (1, 1, h, h))
+    kw = dict(nxg=nxg, inv_dx2=2048.0 ** 2, inv_dy2=2048.0 ** 2, volp=2048.0 ** -2,
+              sor=1.9, h=h, kb=kb)
     before = shard_rb_sweep.launches
-    own, ss = shard_rb_sweep(ext, b, 500, **kw)
+    own, ss = shard_rb_sweep(ext, b, row0, **kw)
     assert shard_rb_sweep.launches == before + kb + 1
-    ref, ss_ref = shard_rb_sweep_plain(ext, b, 500, **kw)
+    ref, ss_ref = shard_rb_sweep_plain(ext, b, row0, **kw)
     torch.cuda.synchronize()
-    assert own.shape == (130 - 4 * kb, 97)
+    assert own.shape == (rows, width)
     assert torch.equal(own, ref) and torch.equal(ss, ss_ref)
 
 
@@ -382,3 +401,4 @@ def test_shard_wrapper_raises_on_what_the_kernel_does_not_take(card):
     et = torch.zeros((10, 12), dtype=torch.float32, device=card).T
     with pytest.raises(ValueError, match="contiguous"):
         shard_rb_sweep(et, et.contiguous(), 0, **kw)
+

@@ -17,6 +17,13 @@ tolerances:
   (float32 sums taken in other orders, and XLA:CPU contracts multiply-adds
   where the port does not).
 
+Inner counts: on the kernel route every step's pressure sweeps equal those
+of JAX's `SpmdSolver` (reported from inside its compiled chunk,
+`spmd_jax.py`); the momentum counts of the first steps, and on the plain
+route the pressure counts too, equal the JAX single-device solver's, which
+JAX's `SpmdSolver` matches by construction (the same loops, exit tests and
+cadence on globally summed residuals).
+
 A one-rank run in a spawned child matches the port's single-device
 `CFDSolver` bit for bit on the sweeps route and within 1e-12 on the
 multigrid route (float64).
@@ -27,11 +34,13 @@ import pytest
 import torch
 
 import spmd_ranks
+from spmd_jax import jax_single_device_counts, jax_spmd
 from spmd_ranks import max_abs
 
 torch.set_num_threads(1)
 
 WORLD = 4
+FIRST = 3  # steps whose momentum counts are held against the single-device solver
 RRE_CAVITY = dict(Re=100, nx=32, ny=32, dt=8e-3, scheme="UPWIND", dtype="float64",
                   chunk_size=500, max_iterations=55, inner_max_iter=40,
                   convergence_criteria={"u": 1e-30, "v": 1e-30, "p": 1e-30},
@@ -80,16 +89,6 @@ def port(tmp_path_factory):
     return spmd_ranks.run_ranks(tmp_path_factory.mktemp("spmd4"), WORLD, cases)
 
 
-def _jax_spmd(maker, kw):
-    from sr_for_cfd_tpu.parallel.mesh import make_mesh
-    from sr_for_cfd_tpu.parallel.spmd_step import SpmdSolver
-    from sr_for_cfd_tpu.solver import cases
-
-    solver = SpmdSolver(getattr(cases, maker)(**kw).case, make_mesh(WORLD, "x"))
-    local = solver.solve()
-    return int(local.count), solver.global_fields()
-
-
 def test_halo_pressure_matches_jax(port):
     """One exchange per half-sweep: the port's ring (zeros on the open
     side) against JAX's wrapping ppermute, whose wrapped rows the boundary
@@ -108,13 +107,16 @@ def test_halo_pressure_matches_jax(port):
     np.testing.assert_array_equal(port["halo"][0], p0[0])
 
 
-def test_plain_route_with_rre_matches_jax(port):
+def test_plain_route_with_rre_matches_jax(port, monkeypatch):
     """Plain sweeps (exchange per block, stacked constants, psum'd rms),
-    decomposed RRE with its jump taken at step 50, float64."""
-    count, fields = _jax_spmd("make_cavity_solver", RRE_CAVITY)
+    decomposed RRE with its jump taken at step 50, float64; the first
+    steps' inner counts equal the single-device solver's."""
+    count, fields, _ = jax_spmd("make_cavity_solver", RRE_CAVITY, WORLD, monkeypatch)
     got = port["rre"]
     assert got["rre_taken"] == 1
     assert got["count"] == count == 55
+    assert got["per_step"][:FIRST] == jax_single_device_counts(
+        "make_cavity_solver", RRE_CAVITY, FIRST)
     for k in "uvp":
         assert max_abs(got["fields"][k], fields[k]) <= 1e-10, k
 
@@ -123,13 +125,18 @@ def test_plain_route_with_rre_matches_jax(port):
     ("pallas_cavity", "make_cavity_solver", PALLAS_CAVITY),
     ("pallas_bfs", "make_bfs_solver", PALLAS_BFS),
 ])
-def test_kernel_route_matches_jax(port, name, maker, kw):
+def test_kernel_route_matches_jax(port, monkeypatch, name, maker, kw):
     """use_pallas=True, pressure_solver='sweeps': the per-rank sweep (row
     9) in blocks of kb = 4 after one 8-row exchange, BFS inlet ghosts on
-    rank 0, float32."""
-    count, fields = _jax_spmd(maker, kw)
+    rank 0, float32; every step's pressure sweeps equal JAX's, the first
+    steps' momentum counts the single-device solver's."""
+    count, fields, p_steps = jax_spmd(maker, kw, WORLD, monkeypatch)
     got = port[name]
     assert got["count"] == count
+    assert [c["p"] for c in got["per_step"]] == p_steps
+    assert len(p_steps) == count
+    uv = [{k: c[k] for k in "uv"} for c in jax_single_device_counts(maker, kw, FIRST)]
+    assert [{k: c[k] for k in "uv"} for c in got["per_step"][:FIRST]] == uv
     for k in "uvp":
         assert max_abs(got["fields"][k], fields[k]) <= 2e-5, k
 

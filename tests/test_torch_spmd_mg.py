@@ -8,6 +8,9 @@ before the replicated tail. Tolerances: float32 V-cycles agree to 1e-5
 absolute (PyTorch and XLA round the transfer products and sums a few ulp
 apart, `tests/test_torch_stream.py`), with equal cycle counts at an exit
 tolerance reached before the float32 floor; the float64 route to 1e-10.
+On both solver routes every step's V-cycles equal those of JAX's
+`SpmdSolver` (reported from inside its compiled chunk, `spmd_jax.py`) and
+the first steps' momentum counts the JAX single-device solver's.
 """
 
 import numpy as np
@@ -15,11 +18,13 @@ import pytest
 import torch
 
 import spmd_ranks
+from spmd_jax import jax_single_device_counts, jax_spmd
 from spmd_ranks import max_abs
 
 torch.set_num_threads(1)
 
 WORLD = 4
+FIRST = 3  # steps whose momentum counts are held against the single-device solver
 N = 64
 PLAN_ARGS = (N, N, 1.0 / N, 1.0 / N, 1.0 / N ** 2)
 MG_TOL = 2e-4
@@ -44,8 +49,7 @@ def port(tmp_path_factory):
                                       kw=dict(tol=MG_TOL, use_pallas=False))),
         "mg_kernel": ("mg_solve", dict(x=x, b=b, plan_args=PLAN_ARGS,
                                        kw=dict(tol=MG_TOL, use_pallas=True))),
-        "pallas_mg": ("solve_case", dict(maker="make_cavity_solver", kw=PALLAS_MG,
-                                         steps=3)),
+        "pallas_mg": ("solve_case", dict(maker="make_cavity_solver", kw=PALLAS_MG)),
         "plain_mg": ("solve_case", dict(maker="make_cavity_solver", kw=PLAIN_MG)),
     }
     return spmd_ranks.run_ranks(tmp_path_factory.mktemp("spmd_mg4"), WORLD, cases)
@@ -102,32 +106,33 @@ def test_sharded_vcycle_matches_jax(port, use_pallas):
     assert max_abs(got, out) <= 1e-5
 
 
-def _jax_spmd(kw):
-    from sr_for_cfd_tpu.parallel.mesh import make_mesh
-    from sr_for_cfd_tpu.parallel.spmd_step import SpmdSolver
-    from sr_for_cfd_tpu.solver.cases import make_cavity_solver
+def _check_counts(got, kw, count, p_steps):
+    """Every step's V-cycles equal JAX's SpmdSolver's, the first steps'
+    momentum counts the single-device solver's."""
+    assert len(p_steps) == count
+    assert [c["p"] for c in got["per_step"]] == p_steps
+    uv = [{k: c[k] for k in "uv"}
+          for c in jax_single_device_counts("make_cavity_solver", kw, FIRST)]
+    assert [{k: c[k] for k in "uv"} for c in got["per_step"][:FIRST]] == uv
 
-    solver = SpmdSolver(make_cavity_solver(**kw).case, make_mesh(WORLD, "x"))
-    local = solver.solve()
-    return int(local.count), solver.global_fields()
 
-
-def test_kernel_multigrid_route_matches_jax(port):
+def test_kernel_multigrid_route_matches_jax(port, monkeypatch):
     """use_pallas=True, pressure_solver='multigrid': the sharded levels'
     smoothers on the per-rank sweep (row 9), float32."""
-    count, fields = _jax_spmd(PALLAS_MG)
+    count, fields, p_steps = jax_spmd("make_cavity_solver", PALLAS_MG, WORLD, monkeypatch)
     got = port["pallas_mg"]
     assert got["count"] == count == PALLAS_MG["max_iterations"]
-    assert all(c["p"] >= 1 for c in got["first"])
+    _check_counts(got, PALLAS_MG, count, p_steps)
     for k in "uvp":
         assert max_abs(got["fields"][k], fields[k]) <= 1e-5, k
 
 
-def test_plain_multigrid_route_matches_jax(port):
+def test_plain_multigrid_route_matches_jax(port, monkeypatch):
     """The plain sharded V-cycle (communication-avoiding smoother with its
     residual by-products), float64."""
-    count, fields = _jax_spmd(PLAIN_MG)
+    count, fields, p_steps = jax_spmd("make_cavity_solver", PLAIN_MG, WORLD, monkeypatch)
     got = port["plain_mg"]
     assert got["count"] == count
+    _check_counts(got, PLAIN_MG, count, p_steps)
     for k in "uvp":
         assert max_abs(got["fields"][k], fields[k]) <= 1e-10, k
