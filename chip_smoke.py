@@ -23,6 +23,15 @@ no result line:
    (omega 1.9): one sweep (bit-equal expected), a solve to a tolerance
    reached in 63 sweeps, and the same solve through the SOR kernel's
    two-launch form (row 1, divide form, a check every sweep). The
+   The V-cycle of rows 2 and 8 as the solvers run it (the levels above the
+   tail level t on the stage kernels, levels t.. in one block, one CUDA
+   graph replay per cycle) bit-equal, with equal counts, to its eager
+   launches and to the stage form (every level on the stage kernels, one
+   launch at a time: the cycle before the redesign) and to the stage form
+   captured as a graph, at 400x400 BFS (3 cycles) and at the 2048x2048
+   level-1 correction; the calls of both forms timed in this run, one
+   replay of each graph and the tail alone too (CUDA events); t, kernels
+   and host launches per cycle printed. The
    per-rank red-black sweep (row 9) on the seeded 2048x2048 field cut as
    8 ranks' 256-row bands (omega 1.9, kb 1 and 8): own rows and residual
    sum bit-equal to the plain version on ranks 0, 3 and 7, the 8 bands
@@ -128,6 +137,14 @@ def cuda_ms(fn, reps, warm=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launches_per_call(fn, counter):
+    """The launches one call of fn() adds to `counter` (a kernel wrapper):
+    the kernels line divides a path's launches by it to count calls."""
+    before = counter.launches
+    fn()
+    return counter.launches - before
 
 
 def bound_ms(bytes_moved, flops):
@@ -342,15 +359,96 @@ def check_pair(name, out_k, n_k, out_p, n_p, quiet=False, floor=1.0):
     return err
 
 
+class CountingLib:
+    """The kernel library with a count of its calls (host launches)."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, 0
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.calls += 1
+            return fn(*args)
+
+        return call
+
+
+def cycle_forms(name, cyc, run, ref, reads, copies, reps):
+    """The V-cycle `cyc` as the solvers run it (tail + CUDA graph) against
+    its eager launches and the stage form (no tail, no graph) on the same
+    inputs, and against the stage form captured as a graph (no tail):
+    `run(c)` returns (output, cycles) on a cycle c, `ref` is run(cyc)'s;
+    fails unless bit-equal with equal counts. Times the stage form's call,
+    one replay of each graph (does the tail beat the graph nodes it
+    replaces?) and the tail alone; counts kernels and host launches per
+    cycle (library calls and replays, plus `reads` host reads per cycle;
+    `copies` entry copies per call come on top)."""
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops import kernel_lib
+    from sr_for_cfd_tpu_torch.ops.mg_kernels import _Cycle, _Tally
+
+    forms = {}
+    for form, flags in (("eager", dict(_graph=False)),
+                        ("stage", dict(_tail=False, _graph=False)),
+                        ("stage graph", dict(_tail=False))):
+        c = _Cycle(cyc.plan, cyc.device, cyc.n_pre, cyc.n_post, cyc.sor,
+                   cyc.coarsest_sweeps, counter=_Tally(), top=cyc.top, **flags)
+        c.lib = CountingLib(c.lib)
+        before = c.counter.launches
+        out, n = run(c)
+        torch.cuda.synchronize()
+        bit = torch.equal(out, ref[0]) and n == ref[1]
+        log(f"  {name}: {form} form bit-equal to the graph form {bit} "
+            f"(max_abs_err {float((out - ref[0]).abs().max()):.3e}, cycles {n} / {ref[1]})")
+        if not bit:
+            fail(f"{name}: the {form} form differs from the graph form")
+        forms[form] = (c, (c.counter.launches - before) / n, c.lib.calls / n + reads)
+    counter = cyc.counter
+    replays, launches = counter.replays, counter.launches
+    cyc.lib = CountingLib(cyc.lib)
+    try:
+        n = run(cyc)[1]
+        torch.cuda.synchronize()
+        host = (cyc.lib.calls + counter.replays - replays) / n + reads
+    finally:
+        cyc.lib = cyc.lib.lib
+    kernels = (counter.launches - launches) / n
+    stage, eager = forms["stage"][0], forms["eager"][0]
+    stage_ms = cuda_ms(lambda: run(stage), reps)
+    eager.stream = kernel_lib.stream_ptr(cyc.device)
+    tail_ms = cuda_ms(eager.tail, 100)
+    # one cycle's graph, no host read: with the tail, and the stages alone
+    replay_ms = cuda_ms(cyc.run, 50)
+    stage_replay_ms = cuda_ms(forms["stage graph"][0].run, 50)
+    numbers = dict(tail_level=cyc.t, tail_levels=list(cyc.setup.sizes[cyc.t:]),
+                   kernels_per_cycle=kernels, host_launches_per_cycle=host,
+                   entry_copies_per_call=copies,
+                   stage_ms=stage_ms, stage_kernels_per_cycle=forms["stage"][1],
+                   stage_host_launches_per_cycle=forms["stage"][2], tail_ms=tail_ms,
+                   replay_ms=replay_ms, stage_replay_ms=stage_replay_ms,
+                   bit_equal_stage=True, bit_equal_eager=True)
+    log(f"  {name}: tail level t={cyc.t} {numbers['tail_levels']}; per cycle "
+        f"{kernels:g} kernels and {host:g} host launches, {copies} entry copies per call "
+        f"(stage form {forms['stage'][1]:g} and {forms['stage'][2]:g}); stage form's call "
+        f"{stage_ms:.4f} ms; one cycle's graph replay {replay_ms:.5f} ms (the stages "
+        f"alone as a graph {stage_replay_ms:.5f}); tail alone {tail_ms:.5f} ms")
+    return numbers
+
+
 def phase_kernels(device):
     import numpy as np
     import torch
 
     from sr_for_cfd_tpu_torch.ops.mg_kernels import (
+        cached_cycle,
+        cycle_solve,
         mg_solve_pressure_kernel,
         plan_hierarchy,
     )
-    from sr_for_cfd_tpu_torch.ops.multigrid import mg_solve_pressure
+    from sr_for_cfd_tpu_torch.ops.multigrid import MG_SMOOTHER_SOR, mg_solve_pressure
     from sr_for_cfd_tpu_torch.ops.pressure_kernels import (
         solve_pressure_kernel,
         solve_pressure_plain,
@@ -374,7 +472,10 @@ def phase_kernels(device):
         log(f"  rb_sor_pressure {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"bound {b_ms:.6f} ms ({b_by}), {n_k} sweeps")
         results[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                              bound_ms=b_ms, bound_by=b_by)
+                              bound_ms=b_ms, bound_by=b_by,
+                              launches_per_call=launches_per_call(
+                                  lambda: solve_pressure_kernel(p, ff, **kw),
+                                  solve_pressure_kernel))
     # V-cycle: the fine grid of the hybrid, 400x400 on the 10x3 BFS domain
     p, ff, geo = seeded_problem(rng, 400, 400, 10.0, 3.0, device)
     kw = dict(geo, tol=1e-30, max_cycles=3)
@@ -390,8 +491,19 @@ def phase_kernels(device):
     b_ms, b_by = bound_ms(nb, fl)
     log(f"  mg_vcycle_pressure 400x400: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
         f"bound {b_ms:.6f} ms ({b_by}), {n_k} cycles, levels {plan.setup.sizes}")
+    # the cycle the wrapper replays (its cache entry), its eager launches and
+    # the stage form, on the same frozen-ghost system
+    solve_kw = dict(dt=geo["dt"], rho=geo["rho"], tol=1e-30, max_cycles=3)
+    cyc = cached_cycle(400, 400, geo["dx"], geo["dy"], geo["volp"], 8, str(p.device),
+                       4, 4, MG_SMOOTHER_SOR, 40)
+    forms = cycle_forms("mg_vcycle_pressure 400x400", cyc,
+                        lambda c: cycle_solve(c, p, ff, **solve_kw), (out_k, n_k),
+                        reads=1, copies=2, reps=10)
     results["400x400"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                              bound_ms=b_ms, bound_by=b_by)
+                              bound_ms=b_ms, bound_by=b_by, **forms,
+                              launches_per_call=launches_per_call(
+                                  lambda: mg_solve_pressure_kernel(p, ff, **kw),
+                                  mg_solve_pressure_kernel))
     return results
 
 
@@ -466,6 +578,7 @@ def phase_fused(device):
             f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms per call "
             f"({b_ms / k:.3e} per step, {b_by})")
         results.append(dict(gate=label, design=design, steps=k, counts=out_k[5],
+                            launches_per_call=launches_per_call(kernel, simple_step_kernel),
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by))
     return results
@@ -505,13 +618,14 @@ def phase_big_grid_kernels(device):
     n = BIG_N
     rows, gates = {}, []
 
-    def timed(name, kernel, plain, work, reps=5):
+    def timed(name, kernel, plain, work, reps=5, counter=None):
         ms = cuda_ms(kernel, reps)
         plain_ms = cuda_ms(plain, 1)
         b_ms, b_by = bound_ms(*work)
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.6f} ms ({b_by})")
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    launches_per_call=launches_per_call(kernel, counter))
 
     # momentum: smooth seeded fields on the 2048^2 cavity's spacing
     f = smooth_fields(21, n + 2, n + 2, scale=0.3)
@@ -537,7 +651,8 @@ def phase_big_grid_kernels(device):
         t = timed(f"tiled_momentum {gate}",
                   lambda: mk.tiled_solve_momentum(u, old, ff, slab_rows=256, **kw),
                   lambda: mk.tiled_solve_momentum_plain(u, old, ff, **kw),
-                  momentum_work(n, n, "QUICK", n_k, n_k // 3), reps=3)
+                  momentum_work(n, n, "QUICK", n_k, n_k // 3), reps=3,
+                  counter=mk.tiled_solve_momentum)
         gates.append(dict(gate=f"tiled_momentum {gate}", sweeps=n_k,
                           max_abs_err=err, **t))
         if gate == "pass k=3":
@@ -559,7 +674,8 @@ def phase_big_grid_kernels(device):
         f"tolerance), entry rms kernel={rms.item():.6e} plain={rms_p.item():.6e}")
     rows["stream_pass_a"] = dict(max_abs_err=err, **timed(
         "stream_pass_a", lambda: sk.stream_pass_a(x, b, lv),
-        lambda: sk.stream_pass_a_plain(x, b, lv), stream_work(lv, "a")))
+        lambda: sk.stream_pass_a_plain(x, b, lv), stream_work(lv, "a"),
+        counter=sk.stream_pass_a))
     e = sk.level1_correction(b1_p, lv).clone()
     e_p = sk.level1_correction_plain(b1_p, lv)
     err, worst = max_err([(e, e_p)])
@@ -567,7 +683,11 @@ def phase_big_grid_kernels(device):
         f"max_abs_err={err:.3e} ({worst:.3f} of its tolerance)")
     rows["stream_level1"] = dict(max_abs_err=err, **timed(
         "stream_level1_correction", lambda: sk.level1_correction(b1_p, lv),
-        lambda: sk.level1_correction_plain(b1_p, lv), stream_work(lv, "l1")))
+        lambda: sk.level1_correction_plain(b1_p, lv), stream_work(lv, "l1"),
+        counter=sk.level1_correction))
+    rows["stream_level1"].update(cycle_forms(
+        f"stream_level1_correction {n}^2", lv.cycle,
+        lambda c: (c.correction(b1_p), 1), (e, 1), reads=0, copies=1, reps=5))
     xb = sk.stream_pass_b(xa_p.clone(), b, e_p, lv)
     xb_p = sk.stream_pass_b_plain(xa_p, b, e_p, lv)
     err, worst = max_err([(xb, xb_p)])
@@ -575,7 +695,8 @@ def phase_big_grid_kernels(device):
     scratch = xa_p.clone()
     rows["stream_pass_b"] = dict(max_abs_err=err, **timed(
         "stream_pass_b", lambda: sk.stream_pass_b(scratch, b, e_p, lv),
-        lambda: sk.stream_pass_b_plain(xa_p, b, e_p, lv), stream_work(lv, "b")))
+        lambda: sk.stream_pass_b_plain(xa_p, b, e_p, lv), stream_work(lv, "b"),
+        counter=sk.stream_pass_b))
     for gate, cycles in (("one forced cycle", 1), ("5-cycle solve", 5)):
         kw = dict(geo, tol=1e-30, max_cycles=cycles, return_count=True)
         out_k, n_k = sk.stream_mg_solve_pressure(p, ff, **kw)
@@ -703,7 +824,10 @@ def phase_tiled_kernels(device):
     log(f"  tiled_rb_pressure {n}^2, ms per sweep: kernel alone {ms:.5f}, in the loop "
         f"with its finalize and host read {loop:.5f}, plain {plain:.5f}, row 1's "
         f"two-launch form {two:.5f}; bound {b_ms:.6f} ({b_by})")
+    per_call = launches_per_call(
+        lambda: tiled_solve_pressure(p, ff, **kw, tol=0.0, max_iter=1), tiled_solve_pressure)
     return dict(max_abs_err=sweep_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                launches_per_call=per_call,
                 bound_by=b_by, loop_ms_per_sweep=loop, two_launch_ms_per_sweep=two,
                 gates=gates)
 
@@ -729,6 +853,7 @@ def reset_counters():
                tiled_solve_momentum, sk.stream_pass_a, sk.level1_correction,
                sk.stream_pass_b, tiled_solve_pressure, shard_rb_sweep):
         fn.launches = 0
+    mg_solve_pressure_kernel.replays = sk.level1_correction.replays = 0
     rre_extrapolate.attempts = rre_extrapolate.taken = 0
 
 
@@ -1252,7 +1377,10 @@ def phase_shard_kernels(device):
     log(f"  shard_rb {rows}+2x{h} rows x {n + 2}, kb={kb}: kernel call {ms:.5f} ms "
         f"({kb + 1} launches), with its host read {ms_read:.5f}, plain {plain:.5f}; "
         f"bound {b_ms:.6f} ({b_by}); a kb=1 call (2 launches) {ms1:.5f}")
+    per_call = launches_per_call(lambda: shard_rb_sweep(ext, b_ext, rank * rows, **call),
+                                 shard_rb_sweep)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                launches_per_call=per_call,
                 ms_with_host_read=ms_read, gates=gates)
 
 
@@ -1428,16 +1556,19 @@ def main():
              source="sr_for_cfd_tpu_torch/csrc/rb_sor.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_kernels.py:136",
              library_ms=None, **launches("rb_sor_pressure"), **kernels["12x12"]),
+        # launches: kernels run (a replay counts its graph's kernels);
+        # replays: graph launches
         dict(name="mg_vcycle_pressure", route="cuda",
              source="sr_for_cfd_tpu_torch/csrc/mg_vcycle.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_mg.py:415",
-             library_ms=None, **launches("mg_vcycle_pressure"), **kernels["400x400"]),
+             library_ms=None, **launches("mg_vcycle_pressure"),
+             replays=launches("mg_vcycle_replays")["launches"], **kernels["400x400"]),
         dict(name="fused_step", route="cuda",
              source="sr_for_cfd_tpu_torch/csrc/fused_step.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_step.py:414",
              library_ms=None, **launches("fused_step"),
              **{k: fused_main[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "bound_by")},
+                                           "bound_ms", "bound_by", "launches_per_call")},
              gates=fused),
         dict(name="tiled_momentum", route="cuda",
              source="sr_for_cfd_tpu_torch/csrc/tiled_momentum.cu",
@@ -1457,7 +1588,9 @@ def main():
         dict(name="stream_level1_correction", route="cuda",
              source="sr_for_cfd_tpu_torch/csrc/mg_vcycle.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_stream.py:298",
-             library_ms=None, **launches("stream_level1"), **big_rows["stream_level1"]),
+             library_ms=None, **launches("stream_level1"),
+             replays=launches("stream_level1_replays")["launches"],
+             **big_rows["stream_level1"]),
         # ms, plain_ms and bound_ms are per sweep at 2048^2 (kernel alone)
         dict(name="tiled_rb_pressure", route="cuda",
              source="sr_for_cfd_tpu_torch/csrc/shard_rb.cu",
@@ -1470,6 +1603,12 @@ def main():
              replaces="sr_for_cfd_tpu/parallel/spmd_pallas.py:93",
              library_ms=None, **launches("shard_rb_pressure"), **shard_row),
     ]
+    # calls on the main paths (in the unit of "ms": a path's launches over
+    # the launches of the gate's call) and the time they lose against the
+    # bound; the order of the next redesign
+    for row in rows:
+        row["calls"] = row["launches"] / row["launches_per_call"]
+        row["lost_s"] = row["calls"] * (row["ms"] - row["bound_ms"]) / 1e3
     dist.destroy_process_group()
     shutil.rmtree(store_dir, ignore_errors=True)
     print(json.dumps({"kernels": rows}), flush=True)

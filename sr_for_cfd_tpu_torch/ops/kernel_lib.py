@@ -52,6 +52,9 @@ SIGNATURES = {
                                    _I, _P]),
     "srcfd_mg_col_transfer": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _F, _I,
                                    _P]),
+    "srcfd_mg_zero": (_I, [_P, _I, _P]),
+    "srcfd_mg_tail_init": (_I, []),
+    "srcfd_mg_tail": (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
     "srcfd_step_small_fits": (_I, [_I, _I]),
     "srcfd_step_small": (_I, [_P] * 21),
     "srcfd_step_mom_partials": (_I, [_I, _I]),
@@ -153,7 +156,9 @@ def build(force: bool = False, verbose: bool = False) -> float:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built if needed, with argtypes set."""
+    """The kernel library, built if needed, with argtypes set and the
+    V-cycle tail's dynamic shared memory allowed (before any launch or
+    graph capture)."""
     global _lib
     with _lock:
         if _lib is None:
@@ -163,6 +168,7 @@ def load_library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.restype = restype
                 fn.argtypes = argtypes
+            check(lib.srcfd_mg_tail_init(), "mg_tail_init")
             _lib = lib
         return _lib
 

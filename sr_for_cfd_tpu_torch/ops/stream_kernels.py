@@ -15,8 +15,9 @@ TPU kernel:
   stages (the other half-sweeps, the column restriction).
 * `level1_correction` (`_coarse_kernel`, :298): one V-cycle from a zero
   guess on levels 1.. of the same hierarchy, then the column prolongation.
-  Kernels: the V-cycle stages of `csrc/mg_vcycle.cu` (`ops/mg_kernels.py`),
-  entered at level 1.
+  Kernels: `csrc/mg_vcycle.cu`'s (`ops/mg_kernels._Cycle` entered at level
+  1): the stages of the levels above the tail, the one-block tail, the
+  column prolongation, all replayed as one CUDA graph.
 * `stream_pass_b` (`_pass_b_kernel`, :332): the [0.75, 0.25] row
   prolongation with edge replication added to the fine iterate, then
   n_post sweeps. Kernels: `csrc/mg_vcycle.cu`'s row transfer and
@@ -45,7 +46,8 @@ The plain versions (`*_plain`) follow the kernels' order of operations, on
 `ops/multigrid.py`'s level operators. On a CPU tensor each wrapper runs its
 plain version; on a CUDA tensor it launches its kernels or raises. The
 `.launches` of `stream_pass_a`, `level1_correction` and `stream_pass_b`
-count their launches.
+count their kernels (a replay adds its graph's), `level1_correction.replays`
+its graph launches.
 """
 
 from __future__ import annotations
@@ -176,12 +178,10 @@ class StreamLevels:
 
     @property
     def cycle(self) -> _Cycle:
-        """V-cycle stage buffers of levels 1.. on the card; their launches
-        count on `level1_correction`."""
+        """The V-cycle of levels 1.. on the card, built and captured at
+        first use; its kernels count on `level1_correction`."""
         if self._cycle is None:
-            x1 = torch.empty((self.nc, self.mc), dtype=torch.float32,
-                             device=self.device)
-            self._cycle = _Cycle(self.plan, x1, x1, self.n_pre, self.n_post,
+            self._cycle = _Cycle(self.plan, self.device, self.n_pre, self.n_post,
                                  self.sor, self.coarsest_sweeps,
                                  counter=level1_correction, top=1)
         return self._cycle
@@ -301,21 +301,11 @@ def stream_pass_a(x: torch.Tensor, b: torch.Tensor, lv: StreamLevels):
 def level1_correction(b1: torch.Tensor, lv: StreamLevels) -> torch.Tensor:
     """One V-cycle from zero on levels 1.. for the right-hand side `b1`,
     then the column prolongation; returns the correction (nc rows, mf
-    columns). On the card the correction may be a buffer of `lv` that the
-    next call overwrites."""
+    columns). On the card the cycle is one replay of `lv.cycle`'s graph,
+    and the correction is a buffer of it that the next call overwrites."""
     if b1.device.type == "cpu":
         return level1_correction_plain(b1, lv)
-    cyc = lv.cycle
-    cyc.b[1] = b1.contiguous()
-    cyc.x[1].zero_()
-    cyc.v_cycle(1)
-    if not lv.coarsen_y:
-        return cyc.x[1]
-    n_rows = lv.nc if lv.coarsen_x else lv.nf
-    e = torch.empty((n_rows, lv.mf), dtype=torch.float32, device=b1.device)
-    cyc._col(_ptr(cyc.x[1]), _ptr(e), n_rows, lv.mc, lv.mf,
-             cyc.plan.col_prolong[0], 1.0, 0)
-    return e
+    return lv.cycle.correction(b1)
 
 
 def stream_pass_b(x: torch.Tensor, b: torch.Tensor, e: torch.Tensor,
@@ -409,4 +399,5 @@ def stream_mg_solve_pressure(
 
 stream_pass_a.launches = 0
 level1_correction.launches = 0
+level1_correction.replays = 0
 stream_pass_b.launches = 0

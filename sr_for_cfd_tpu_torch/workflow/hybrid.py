@@ -39,8 +39,9 @@ from ..utils.naming import (
 
 
 def kernel_launch_counts() -> Dict[str, int]:
-    """Launch counters of the CUDA kernel wrappers, and the RRE jumps
-    attempted and taken."""
+    """Launch counters of the CUDA kernel wrappers (kernels run, a graph
+    replay counting its kernels), the V-cycle graphs' replays, and the RRE
+    jumps attempted and taken."""
     from ..ops import stream_kernels as sk
     from ..ops.extrapolate import rre_extrapolate
     from ..ops.mg_kernels import mg_solve_pressure_kernel
@@ -56,6 +57,8 @@ def kernel_launch_counts() -> Dict[str, int]:
             "tiled_momentum": tiled_solve_momentum.launches,
             "stream_pass_a": sk.stream_pass_a.launches,
             "stream_level1": sk.level1_correction.launches,
+            "mg_vcycle_replays": mg_solve_pressure_kernel.replays,
+            "stream_level1_replays": sk.level1_correction.replays,
             "stream_pass_b": sk.stream_pass_b.launches,
             "tiled_rb_pressure": tiled_solve_pressure.launches,
             "shard_rb_pressure": shard_rb_sweep.launches,

@@ -402,3 +402,96 @@ def test_shard_wrapper_raises_on_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         shard_rb_sweep(et, et.contiguous(), 0, **kw)
 
+
+
+def _mg_plan(card, nx, ny, lx, ly):
+    from sr_for_cfd_tpu_torch.ops.mg_kernels import plan_hierarchy
+
+    return plan_hierarchy(nx, ny, lx / nx, ly / ny, lx * ly / (nx * ny), 8, str(card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,lx,ly,max_cycles", [
+    (400, 400, 10.0, 3.0, 3), (400, 400, 10.0, 3.0, 30), (33, 47, 1.0, 1.0, 30),
+    (1001, 999, 1.0, 1.0, 3)])
+def test_mg_cycle_forms_are_bit_equal(card, nx, ny, lx, ly, max_cycles):
+    """The V-cycle as the solver runs it (tail + CUDA graph), its eager
+    launches (tail, no graph) and the stage form (neither): bit-equal
+    fields and equal cycle counts, over 3 forced cycles and over a solve
+    that the stall policy ends (30 cycles at most); the BFS 400^2 grid, odd
+    sizes with the whole hierarchy in the tail, and a grid with banded row
+    transfers on the stages above the tail."""
+    from sr_for_cfd_tpu_torch.ops.mg_kernels import _Cycle, _Tally, cycle_solve
+
+    p, ff, geo = _problem(nx + ny, nx, ny, lx, ly, card)
+    plan = _mg_plan(card, nx, ny, lx, ly)
+    kw = dict(dt=geo["dt"], rho=geo["rho"], tol=1e-30, max_cycles=max_cycles)
+    runs = {}
+    for form, flags in (("graph", {}), ("eager", dict(_graph=False)),
+                        ("stage", dict(_tail=False, _graph=False))):
+        tally = _Tally()
+        cyc = _Cycle(plan, card, 4, 4, 1.5, 40, counter=tally, **flags)
+        before = tally.launches
+        out, n = cycle_solve(cyc, p, ff, **kw)
+        runs[form] = (out, n, tally.launches - before, tally.replays, cyc)
+    out, n, launches, replays, cyc = runs["graph"]
+    assert replays == n and launches == n * cyc.kernels
+    assert runs["eager"][2] == launches  # the graph holds the eager launches
+    assert runs["stage"][2] > launches
+    for form in ("eager", "stage"):
+        assert torch.equal(runs[form][0], out) and runs[form][1] == n
+    if max_cycles == 3:
+        assert n == 3
+        ref, n_ref = mg_solve_pressure(p, ff, **dict(geo, tol=1e-30, max_cycles=3))
+        _close(out, ref)
+
+
+@pytest.mark.cuda
+def test_level1_correction_forms_are_bit_equal(card):
+    """The 2048^2 cavity's level-1 correction: the cached graph with the
+    tail at (64, 64), its eager launches and the stage form, bit-equal;
+    within 2e-5 of the plain version."""
+    from sr_for_cfd_tpu_torch.ops import stream_kernels as sk
+    from sr_for_cfd_tpu_torch.ops.mg_kernels import _Cycle, _Tally
+
+    n = 2048
+    lv = sk.StreamLevels(n, n, 1.0 / n, 1.0 / n, 1.0 / n**2, card)
+    g = np.random.default_rng(8)
+    b1 = torch.tensor(g.standard_normal((lv.nc, lv.mc)), dtype=torch.float32,
+                      device=card)
+    assert lv.cycle.t == 5 and lv.setup.sizes[5] == (64, 64)
+    e = sk.level1_correction(b1, lv).clone()
+    for flags in (dict(_graph=False), dict(_tail=False, _graph=False)):
+        cyc = _Cycle(lv.plan, card, 4, 4, lv.sor, 40, counter=_Tally(), top=1, **flags)
+        assert torch.equal(cyc.correction(b1), e)
+    _close(e, sk.level1_correction_plain(b1, lv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["synchronize while capturing", "launch refused"])
+def test_mg_failed_capture_raises(card, monkeypatch, fault):
+    """A capture that fails, or a launch refused during it, raises from
+    the solve; nothing falls back to eager launches or the plain
+    version."""
+    from sr_for_cfd_tpu_torch.ops import mg_kernels as mk
+
+    body = mk._Cycle.body
+
+    def faulty(self):
+        capturing = torch.cuda.is_current_stream_capturing()
+        if capturing and fault == "launch refused":
+            # more shared memory than the kernel allows: the launch is refused
+            self.tail_args = (*self.tail_args[:3], 2 * mk.TAIL_SMEM_BUDGET)
+        body(self)
+        if capturing and fault == "synchronize while capturing":
+            torch.cuda.synchronize()
+
+    monkeypatch.setattr(mk._Cycle, "body", faulty)
+    p, ff, geo = _problem(5, 35, 45, 1.0, 1.0, card)
+    mk.cached_cycle.cache_clear()
+    with pytest.raises(RuntimeError):
+        mg_solve_pressure_kernel(p, ff, **geo, tol=1e-30, max_cycles=3)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    out, n = mg_solve_pressure_kernel(p, ff, **geo, tol=1e-30, max_cycles=3)
+    _close(out, mg_solve_pressure(p, ff, **geo, tol=1e-30, max_cycles=3)[0])
