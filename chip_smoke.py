@@ -19,11 +19,18 @@ no result line:
    (K=1, omega 1.0). The big-grid kernels at 2048x2048: a QUICK momentum
    pass (3 sweeps) and a momentum solve, the streamed V-cycle's pass A,
    level-1 correction and pass B each alone, one forced streamed cycle and
-   a 5-cycle streamed solve. The tiled red-black sweep at 2048x2048
-   (omega 1.9): one sweep (bit-equal expected), a solve to a tolerance
-   reached in 63 sweeps, and the same solve through the SOR kernel's
-   two-launch form (row 1, divide form, a check every sweep). The
-   The V-cycle of rows 2 and 8 as the solvers run it (the levels above the
+   a 5-cycle streamed solve. The tiled red-black sweep (row 5) at
+   2048x2048 (omega 1.9), the device-exit loop (the fused kernel, the
+   exit state on the card, batches of 8 launches, one host read per
+   batch) bit-equal to the plain version and to the host-exit
+   loop (the one-sweep kernel, a finalize and a host read per sweep): one
+   sweep, also on either tile side of the fused kernel (32 or 64 cells), a
+   solve to a tolerance reached in 63 sweeps, max_iter at every position
+   of a batch, and a 34x30 solve that the stall policy ends; the 63-sweep
+   solve through the SOR kernel's two-launch form (row 1, divide form, a
+   check every sweep); ms per sweep of each tile side and of the one-sweep
+   kernel alone, of the two loops, of the plain version and of the
+   two-launch form, host reads per solve. The V-cycle of rows 2 and 8 as the solvers run it (the levels above the
    tail level t on the stage kernels, levels t.. in one block, one CUDA
    graph replay per cycle) bit-equal, with equal counts, to its eager
    launches and to the stage form (every level on the stage kernels, one
@@ -32,13 +39,19 @@ no result line:
    level-1 correction; the calls of both forms timed in this run, one
    replay of each graph and the tail alone too (CUDA events); t, kernels
    and host launches per cycle printed. The
-   per-rank red-black sweep (row 9) on the seeded 2048x2048 field cut as
-   8 ranks' 256-row bands (omega 1.9, kb 1 and 8): own rows and residual
-   sum bit-equal to the plain version on ranks 0, 3 and 7, the 8 bands
-   stitched against kb whole-grid sweeps within 1e-6 of max|p|; bit-equal
-   too at the blocks the one-rank main paths 5c and 5d give it (the 400x400
-   block at kb 8, every sharded level of the 2048x2048 V-cycle at kb 4,
-   built as those paths build them). Max abs
+   per-rank red-black sweep (row 9, the fused form: kb sweeps and the sum
+   in one launch) on the seeded 2048x2048 field cut as 8 ranks' 256-row
+   bands (omega 1.9, kb 1 and 8): own rows and residual sum bit-equal to
+   the staged form (kb one-sweep launches and the sum) and to the plain
+   version on every rank, the 8 bands stitched against kb whole-grid
+   sweeps within 1e-6 of max|p|; bit-equal too at the blocks the one-rank
+   main paths 5c and 5d give it (the 400x400 block at kb 8, every sharded
+   level of the 2048x2048 V-cycle at kb 4, built as those paths build
+   them); a kb past the fused form's shared memory (34, on the one-sweep
+   form) bit-equal too; both forms' calls timed in this run, launches per
+   call. Row 3's
+   own time: the 400x400 multigrid gate's call less its V-cycles at one
+   row 2 cycle's call time. Max abs
    difference against the stated tolerance, counts, kernel and plain
    times (CUDA events) and bounds.
 3. non-fused main path: `run_hybrid_experiment` for the BFS Re=400 hybrid
@@ -499,7 +512,7 @@ def phase_kernels(device):
     forms = cycle_forms("mg_vcycle_pressure 400x400", cyc,
                         lambda c: cycle_solve(c, p, ff, **solve_kw), (out_k, n_k),
                         reads=1, copies=2, reps=10)
-    results["400x400"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+    results["400x400"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, cycles=n_k,
                               bound_ms=b_ms, bound_by=b_by, **forms,
                               launches_per_call=launches_per_call(
                                   lambda: mg_solve_pressure_kernel(p, ff, **kw),
@@ -535,6 +548,7 @@ def phase_fused(device):
     state: fields within REL_TOL of the largest |value|, equal counts."""
     import torch
 
+    from sr_for_cfd_tpu_torch.ops.mg_kernels import mg_solve_pressure_kernel
     from sr_for_cfd_tpu_torch.ops.step_kernels import (
         simple_step_kernel,
         simple_step_plain,
@@ -577,7 +591,12 @@ def phase_fused(device):
         log(f"  fused_step {label}: kernel {ms:.4f} ms per call ({ms / k:.5f} per step), "
             f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms per call "
             f"({b_ms / k:.3e} per step, {b_by})")
+        # the V-cycles (row 2's graph replays) inside one call
+        cycles = mg_solve_pressure_kernel.replays
+        kernel()
+        cycles = mg_solve_pressure_kernel.replays - cycles
         results.append(dict(gate=label, design=design, steps=k, counts=out_k[5],
+                            vcycles_per_call=cycles,
                             launches_per_call=launches_per_call(kernel, simple_step_kernel),
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by))
@@ -751,85 +770,198 @@ TILED_SOR = 1.9
 TILED_GATE_TOL = 1.5e-4
 
 
+def fused_sweep(p, b, plan, coef):
+    """One launch of the fused tiled kernel (kb = 1, no loop state: the sum
+    to a scratch) between two copies of p, alternating; returns the
+    callable and the kernel library."""
+    import ctypes
+
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops import kernel_lib, shard_rb
+
+    lib = kernel_lib.load_library()
+    nx2, ny2 = p.shape
+    bufs = [p.clone(), p.clone()]
+    scratch = [torch.zeros(plan.n_sum, device=p.device),
+               torch.zeros(1, dtype=torch.int32, device=p.device),
+               torch.zeros(1, device=p.device)]
+    inv_dx2, inv_dy2, volp, sor, ap_d = coef
+    prm = shard_rb.make_params(plan, nx2, ny2, nxg=nx2 - 2, h=1, mode=1, inv_dx2=inv_dx2,
+                               inv_dy2=inv_dy2, volp=volp, sor=sor, inv_ap=1.0 / ap_d,
+                               ap_d=ap_d, partials=scratch[0].data_ptr(),
+                               ticket=scratch[1].data_ptr())
+    stream = kernel_lib.stream_ptr(p.device)
+
+    def sweep():
+        kernel_lib.check(lib.srcfd_shard_rb_fused(
+            ctypes.addressof(prm), bufs[0].data_ptr(), bufs[1].data_ptr() + 4 * ny2,
+            b.data_ptr(), scratch[2].data_ptr(), 0, stream), "tiled_rb_fused")
+        bufs.reverse()
+
+    sweep.keep = (prm, scratch)  # alive as long as the callable
+    return sweep, bufs
+
+
+# the tile sides of the fused kernel at kb = 1 on the 2050^2 grid
+TILED_VARIANTS = (("tile 32", 32), ("tile 64", 64))
+
+
 def phase_tiled_kernels(device):
-    """The tiled red-black sweep (row 5) at 2048^2 on a seeded problem: one
-    sweep and a solve against the plain version, the same solve through the
-    SOR kernel's two-launch form (row 1, divide=True, check_every=1);
-    times per sweep of the kernel alone, of the loop with its host read, of
-    the plain version and of the two-launch form."""
+    """The tiled red-black sweep (row 5) at 2048^2 on a seeded problem. The
+    device-exit loop (`tiled_solve_pressure`: the fused kernel, the exit
+    state on the card, batches of BATCH launches, one host read per batch)
+    against the plain version and the host-exit loop (the one-sweep
+    kernel, a finalize and a host read per sweep): one sweep bit-equal to
+    both, on either tile side of the fused kernel too; the
+    63-sweep solve and a solve the stall policy ends (a 34x30 grid at tol
+    0) and max_iter at every position of a batch, bit-equal fields and
+    equal counts; row 1's two-launch form on the 63-sweep solve. Ms per
+    sweep of the fused kernel alone (each tile side) and of the one-sweep
+    kernel alone, of the device-exit loop, of the host-exit loop, of the
+    two-launch form and of the plain version; host reads per solve."""
     import numpy as np
     import torch
 
-    from sr_for_cfd_tpu_torch.ops import kernel_lib
+    from sr_for_cfd_tpu_torch.ops import kernel_lib, shard_rb
     from sr_for_cfd_tpu_torch.ops.pressure_kernels import (
         _coefficients,
         solve_pressure_kernel,
         solve_pressure_plain,
     )
-    from sr_for_cfd_tpu_torch.ops.tiled_kernels import tiled_solve_pressure
+    from sr_for_cfd_tpu_torch.ops.tiled_kernels import (
+        BATCH,
+        _tiled_solve_pressure_host_exit,
+        tiled_solve_pressure,
+    )
 
     n = BIG_N
     p, ff, geo = seeded_problem(np.random.default_rng(2048), n, n, 1.0, 1.0, device)
     kw = dict(geo, sor=TILED_SOR)
     plain_kw = dict(kw, check_every=1, divide=True)
+    coef = _coefficients(geo["dx"], geo["dy"], geo["volp"], TILED_SOR, n, n)
+    coef = (coef[0], coef[1], geo["volp"], coef[2], coef[4])
+    b = torch.zeros_like(p)
+    b[1:-1, 1:-1] = (geo["rho"] / geo["dt"]) * ff.divergence_sum()
     gates = []
-    out_k, n_k = tiled_solve_pressure(p, ff, **kw, tol=0.0, max_iter=1)
-    out_p, n_p = solve_pressure_plain(p, ff, **plain_kw, tol=0.0, max_iter=1)
+
+    def same(name, out, n_out, ref, n_ref):
+        bit = torch.equal(out, ref) and n_out == n_ref
+        log(f"  tiled_rb_pressure {name}: bit-equal {bit} (max_abs_err "
+            f"{float((out - ref).abs().max()):.3e}, sweeps {n_out} / {n_ref})")
+        if not bit:
+            fail(f"tiled_rb_pressure {name}: the forms differ")
+        gates.append(dict(gate=name, sweeps=n_out, bit_equal=True, max_abs_err=0.0))
+
+    one = dict(tol=0.0, max_iter=1)
+    out_k, n_k = tiled_solve_pressure(p, ff, **kw, **one)
+    out_p, n_p = solve_pressure_plain(p, ff, **plain_kw, **one)
+    out_h, n_h = _tiled_solve_pressure_host_exit(p, ff, **kw, **one)
     torch.cuda.synchronize()
     # limits: REL_TOL x max|p| (no floor of 1: |p| is ~0.1 here)
     sweep_err = check_pair(f"tiled_rb_pressure one sweep {n}^2", out_k, n_k, out_p, n_p,
                            floor=0.0)
-    log(f"  tiled_rb_pressure one sweep: bit-equal {torch.equal(out_k, out_p)}")
-    gates.append(dict(gate="one sweep", sweeps=n_k, max_abs_err=sweep_err,
-                      bit_equal=torch.equal(out_k, out_p)))
+    same("one sweep, device-exit loop vs plain", out_k, n_k, out_p, n_p)
+    same("one sweep, device-exit loop vs host-exit loop", out_k, n_k, out_h, n_h)
+    variants = {}
+    for name, ot in TILED_VARIANTS:
+        plan = shard_rb.shard_rb_plan(n + 2, n + 2, 1, 1, ot=ot)
+        sweep, bufs = fused_sweep(p, b, plan, coef)
+        sweep()
+        torch.cuda.synchronize()
+        same(f"one sweep, fused {name} (grid {plan.n_tiles}, {plan.smem} B) vs plain",
+             bufs[0], 1, out_p, 1)
+        variants[name] = (plan, sweep)
+
     solve = dict(tol=TILED_GATE_TOL, max_iter=200)
     out_k, n_k = tiled_solve_pressure(p, ff, **kw, **solve)
     out_p, n_p = solve_pressure_plain(p, ff, **plain_kw, **solve)
+    out_h, n_h = _tiled_solve_pressure_host_exit(p, ff, **kw, **solve)
     torch.cuda.synchronize()
     err = check_pair(f"tiled_rb_pressure solve tol {TILED_GATE_TOL:g}", out_k, n_k,
                      out_p, n_p, floor=0.0)
     gates.append(dict(gate=f"solve tol {TILED_GATE_TOL:g}", sweeps=n_k, max_abs_err=err))
+    same(f"solve tol {TILED_GATE_TOL:g}, device-exit vs host-exit loop", out_k, n_k,
+         out_h, n_h)
     out_2, n_2 = solve_pressure_kernel(p, ff, **plain_kw, **solve)
     torch.cuda.synchronize()
     err2 = check_pair("two-launch form (row 1) against the tiled sweep, same solve",
                       out_2, n_2, out_k, n_k, floor=0.0)
     gates.append(dict(gate="row 1 two-launch form vs tiled, same solve", sweeps=n_2,
                       max_abs_err=err2))
+    # the exit by max_iter at every position of a batch (before the
+    # tolerance's sweep 63)
+    for max_iter in range(6 * BATCH + 1, 7 * BATCH + 1):
+        out_k, n_k = tiled_solve_pressure(p, ff, **kw, tol=TILED_GATE_TOL, max_iter=max_iter)
+        out_h, n_h = _tiled_solve_pressure_host_exit(p, ff, **kw, tol=TILED_GATE_TOL,
+                                                     max_iter=max_iter)
+        torch.cuda.synchronize()
+        if n_k != max_iter:
+            fail(f"tiled_rb_pressure max_iter {max_iter}: {n_k} sweeps")
+        same(f"max_iter {max_iter} (batch position {(max_iter - 1) % BATCH + 1}), "
+             f"device-exit vs host-exit loop", out_k, n_k, out_h, n_h)
+    # a solve that the stall policy ends: tol 0 on a 34x30 grid, whose rms
+    # reaches the float32 floor
+    ps, ffs, gs = seeded_problem(np.random.default_rng(64), 34, 30, 1.0, 1.0, device)
+    out_k, n_k = tiled_solve_pressure(ps, ffs, **gs, sor=TILED_SOR, tol=0.0, max_iter=20000)
+    out_h, n_h = _tiled_solve_pressure_host_exit(ps, ffs, **gs, sor=TILED_SOR, tol=0.0,
+                                                 max_iter=20000)
+    torch.cuda.synchronize()
+    if not n_k < 20000:
+        fail("tiled_rb_pressure: the stall policy did not end the tol-0 solve")
+    same("34x30 solve ended by the stall policy, device-exit vs host-exit loop",
+         out_k, n_k, out_h, n_h)
 
-    # the kernel alone: back-to-back sweeps between two buffers, no finalize
+    # times per sweep
     lib = kernel_lib.load_library()
     stream = kernel_lib.stream_ptr(p.device)
-    inv_dx2, inv_dy2, sor, _, ap_d = _coefficients(geo["dx"], geo["dy"], geo["volp"],
-                                                   TILED_SOR, n, n)
-    b = torch.zeros_like(p)
-    b[1:-1, 1:-1] = (geo["rho"] / geo["dt"]) * ff.divergence_sum()
+    inv_dx2, inv_dy2, volp, sor, ap_d = coef
     bufs = [p.clone(), p.clone()]
     partials = torch.empty(lib.srcfd_shard_rb_partials(n + 2, n + 2), device=p.device)
 
-    def sweep():
+    def old_sweep():
         kernel_lib.check(lib.srcfd_tiled_rb_sweep(
             bufs[0].data_ptr(), bufs[1].data_ptr(), b.data_ptr(), partials.data_ptr(),
-            n + 2, n + 2, inv_dx2, inv_dy2, geo["volp"], sor, ap_d, stream), "tiled_rb")
+            n + 2, n + 2, inv_dx2, inv_dy2, volp, sor, ap_d, stream), "tiled_rb")
         bufs.reverse()
 
+    default = shard_rb.shard_rb_plan(n + 2, n + 2, 1, 1)
+    fused_ms = {}
+    old = cuda_ms(old_sweep, 200)
+    for name, (plan, sweep) in variants.items():
+        fused_ms[name] = cuda_ms(sweep, 200)
+    old2 = cuda_ms(old_sweep, 200)
+    ms = next(fused_ms[nm] for nm, ot in TILED_VARIANTS if ot == default.ot)
     sweeps = 100
-    ms = cuda_ms(sweep, 200)
     loop = cuda_ms(lambda: tiled_solve_pressure(p, ff, **kw, tol=0.0, max_iter=sweeps),
                    3) / sweeps
+    host_exit = cuda_ms(lambda: _tiled_solve_pressure_host_exit(
+        p, ff, **kw, tol=0.0, max_iter=sweeps), 3) / sweeps
     two = cuda_ms(lambda: solve_pressure_kernel(p, ff, **plain_kw, tol=0.0,
                                                 max_iter=sweeps), 3) / sweeps
     plain = cuda_ms(lambda: solve_pressure_plain(p, ff, **plain_kw, tol=0.0,
                                                  max_iter=10), 2) / 10
+    reads = tiled_solve_pressure.reads
+    tiled_solve_pressure(p, ff, **kw, tol=0.0, max_iter=sweeps)
+    reads = tiled_solve_pressure.reads - reads
     b_ms, b_by = bound_ms(*tiled_sweep_work(n, n))
-    log(f"  tiled_rb_pressure {n}^2, ms per sweep: kernel alone {ms:.5f}, in the loop "
-        f"with its finalize and host read {loop:.5f}, plain {plain:.5f}, row 1's "
-        f"two-launch form {two:.5f}; bound {b_ms:.6f} ({b_by})")
+    log(f"  tiled_rb_pressure {n}^2, ms per sweep: fused kernel alone "
+        + ", ".join(f"{nm} {v:.5f}" for nm, v in fused_ms.items())
+        + f" (the loop's plan: tile {default.ot}); the one-sweep "
+        f"kernel alone {old:.5f} / {old2:.5f}; device-exit loop {loop:.5f} (batches of "
+        f"{BATCH} launches); host-exit loop "
+        f"{host_exit:.5f}; plain {plain:.5f}; row 1's two-launch form {two:.5f}; bound "
+        f"{b_ms:.6f} ({b_by}); host reads per {sweeps}-sweep solve {reads} (host-exit "
+        f"{sweeps})")
     per_call = launches_per_call(
         lambda: tiled_solve_pressure(p, ff, **kw, tol=0.0, max_iter=1), tiled_solve_pressure)
     return dict(max_abs_err=sweep_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                launches_per_call=per_call,
-                bound_by=b_by, loop_ms_per_sweep=loop, two_launch_ms_per_sweep=two,
-                gates=gates)
+                launches_per_call=per_call, bound_by=b_by,
+                plan=dict(ot=default.ot, grid=default.n_tiles),
+                fused_ms_by_tile=fused_ms, one_sweep_kernel_ms=(old + old2) / 2,
+                loop_ms_per_sweep=loop,
+                host_exit_loop_ms_per_sweep=host_exit, two_launch_ms_per_sweep=two,
+                host_reads_per_100_sweeps=reads, gates=gates)
 
 
 def finite_fields(solver):
@@ -854,6 +986,7 @@ def reset_counters():
                sk.stream_pass_b, tiled_solve_pressure, shard_rb_sweep):
         fn.launches = 0
     mg_solve_pressure_kernel.replays = sk.level1_correction.replays = 0
+    tiled_solve_pressure.reads = tiled_solve_pressure.sweeps = 0
     rre_extrapolate.attempts = rre_extrapolate.taken = 0
 
 
@@ -1238,26 +1371,33 @@ def shard_work(R, W, rows, kb, all_valid=True):
 
 
 def check_shard(gates, name, ext, b_ext, row0, kw):
-    """The per-rank sweep kernel against its plain version on one block:
-    own rows and residual sum bit-equal, or the run fails. Returns the
-    largest own-row difference."""
+    """The per-rank sweep (the fused form, one launch) against the staged
+    form (kb one-sweep launches and the sum) and the plain version on one
+    block: own rows and residual sum bit-equal, or the run fails. Returns
+    the largest own-row difference."""
     import torch
 
     from sr_for_cfd_tpu_torch.parallel.spmd_kernels import (
+        _shard_rb_sweep_staged,
         shard_rb_sweep,
         shard_rb_sweep_plain,
     )
 
     own_k, ss_k = shard_rb_sweep(ext, b_ext, row0, **kw)
+    own_k, ss_k = own_k.clone(), ss_k.clone()
+    own_s, ss_s = _shard_rb_sweep_staged(ext, b_ext, row0, **kw)
     own_p, ss_p = shard_rb_sweep_plain(ext, b_ext, row0, **kw)
     torch.cuda.synchronize()
     err = float(torch.max(torch.abs(own_k - own_p)).item())
     bit = torch.equal(own_k, own_p) and torch.equal(ss_k, ss_p)
-    log(f"  shard_rb {name}: own rows and ss bit-equal {bit} "
-        f"(max_abs_err {err:.3e}, ss {float(ss_k):.9e} / {float(ss_p):.9e})")
-    if not bit:
-        fail(f"shard_rb {name}: kernel and plain version differ")
-    gates.append(dict(gate=name, bit_equal=bit, max_abs_err=err))
+    bit_staged = torch.equal(own_k, own_s) and torch.equal(ss_k, ss_s)
+    log(f"  shard_rb {name}: own rows and ss bit-equal to the plain version {bit}, to the "
+        f"staged form {bit_staged} (max_abs_err {err:.3e}, ss {float(ss_k):.9e} / "
+        f"{float(ss_p):.9e} / {float(ss_s):.9e})")
+    if not (bit and bit_staged):
+        fail(f"shard_rb {name}: the fused form, the staged form and the plain version differ")
+    gates.append(dict(gate=name, bit_equal=bit, bit_equal_staged=bit_staged,
+                      max_abs_err=err))
     return err
 
 
@@ -1316,18 +1456,24 @@ def main_path_shard_gates(gates, device):
 
 def phase_shard_kernels(device):
     """The per-rank red-black sweep (row 9). On a seeded 2048^2 problem cut
-    as 8 ranks' 256-row bands, kb 1 and 8 (h = 2kb): on ranks 0, 3 and 7
-    the kernel's own rows and residual sum bit-equal to the plain version;
-    the 8 ranks' own rows stitched against kb whole-grid red-black sweeps
-    (the plain arithmetic on the whole field, ghost ring frozen) within
-    1e-6 of max|p|. Bit-equal at the one-rank main paths' own blocks too
-    (`main_path_shard_gates`). Ms per call of the kernel alone, with its
-    host read, and of the plain version, at kb 8 on rank 3's band."""
+    as 8 ranks' 256-row bands, kb 1 and 8 (h = 2kb): on every rank the
+    fused form's own rows and residual sum bit-equal to the staged form and
+    to the plain version; the 8 ranks' own rows stitched against kb
+    whole-grid red-black sweeps (the plain arithmetic on the whole field,
+    ghost ring frozen) within 1e-6 of max|p|. Bit-equal at the one-rank
+    main paths' own blocks too (`main_path_shard_gates`). Ms per call of
+    the fused and the staged form, each with and without its host read,
+    of the fused form's C entry alone and of the plain version, at kb 8
+    and kb 1 on rank 3's band; launches per call."""
     import numpy as np
     import torch
 
+    from sr_for_cfd_tpu_torch.ops import kernel_lib, shard_rb
     from sr_for_cfd_tpu_torch.ops.sweeps import optimal_sor
     from sr_for_cfd_tpu_torch.parallel.spmd_kernels import (
+        _coefficient,
+        _fused_params,
+        _shard_rb_sweep_staged,
         shard_rb_sweep,
         shard_rb_sweep_plain,
     )
@@ -1341,7 +1487,7 @@ def phase_shard_kernels(device):
     gates, worst = [], 0.0
     for kb in (1, 8):
         h = 2 * kb
-        for rank in (0, 3, SPMD_RANKS - 1):
+        for rank in range(SPMD_RANKS):
             ext, b_ext = shard_block(p, b, rank, rows, h)
             worst = max(worst, check_shard(gates, f"kb={kb} rank {rank}", ext, b_ext,
                                            rank * rows, dict(kw, h=h, kb=kb)))
@@ -1364,24 +1510,69 @@ def phase_shard_kernels(device):
             fail(f"shard_rb kb={kb}: stitched own rows differ from the whole-grid sweeps")
         gates.append(dict(gate=f"kb={kb} stitched vs whole grid", max_abs_err=err))
     worst = max(worst, main_path_shard_gates(gates, device))
+    # a kb past the fused form's shared memory runs on the one-sweep form
+    kb = 34
+    assert not shard_rb.fits(kb)
+    ext, b_ext = shard_block(p, b, 3, rows, 2 * kb)
+    call = dict(kw, h=2 * kb, kb=kb)
+    worst = max(worst, check_shard(gates, f"kb={kb} rank 3 (past the fused budget)", ext,
+                                   b_ext, 3 * rows, call))
+    past = launches_per_call(lambda: shard_rb_sweep(ext, b_ext, 3 * rows, **call),
+                             shard_rb_sweep)
+    if past != kb + 1:
+        fail(f"shard_rb kb={kb}: {past} launches a call, expected {kb + 1}")
 
-    kb, h, rank = 8, 16, 3
-    ext, b_ext = shard_block(p, b, rank, rows, h)
-    call = dict(h=h, kb=kb, **kw)
-    ms = cuda_ms(lambda: shard_rb_sweep(ext, b_ext, rank * rows, **call), 50)
-    ms_read = cuda_ms(lambda: shard_rb_sweep(ext, b_ext, rank * rows, **call)[1].item(), 50)
-    plain = cuda_ms(lambda: shard_rb_sweep_plain(ext, b_ext, rank * rows, **call), 3)
-    b_ms, b_by = bound_ms(*shard_work(rows + 2 * h, n + 2, rows, kb))
-    ext1, b_ext1 = shard_block(p, b, rank, rows, 2)
-    ms1 = cuda_ms(lambda: shard_rb_sweep(ext1, b_ext1, rank * rows, h=2, kb=1, **kw), 50)
-    log(f"  shard_rb {rows}+2x{h} rows x {n + 2}, kb={kb}: kernel call {ms:.5f} ms "
-        f"({kb + 1} launches), with its host read {ms_read:.5f}, plain {plain:.5f}; "
-        f"bound {b_ms:.6f} ({b_by}); a kb=1 call (2 launches) {ms1:.5f}")
-    per_call = launches_per_call(lambda: shard_rb_sweep(ext, b_ext, rank * rows, **call),
-                                 shard_rb_sweep)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                launches_per_call=per_call,
-                ms_with_host_read=ms_read, gates=gates)
+    # times of one call on rank 3's band: the fused form (the wrapper, and
+    # its C entry alone), the staged form, the plain version
+    rank = 3
+    times = {}
+    for kb in (8, 1):
+        h = 2 * kb
+        ext, b_ext = shard_block(p, b, rank, rows, h)
+        call = dict(h=h, kb=kb, **kw)
+        t = dict(
+            ms=cuda_ms(lambda: shard_rb_sweep(ext, b_ext, rank * rows, **call), 100),
+            staged_ms=cuda_ms(lambda: _shard_rb_sweep_staged(ext, b_ext, rank * rows, **call),
+                              100),
+            ms_with_host_read=cuda_ms(
+                lambda: shard_rb_sweep(ext, b_ext, rank * rows, **call)[1].item(), 50),
+            staged_ms_with_host_read=cuda_ms(
+                lambda: _shard_rb_sweep_staged(ext, b_ext, rank * rows, **call)[1].item(), 50))
+        addr = _fused_params(ext.shape[0], ext.shape[1], h, kb, n, kw["inv_dx2"],
+                             kw["inv_dy2"], kw["volp"], _coefficient(
+                                 kw["inv_dx2"], kw["inv_dy2"], kw["volp"], kw["sor"]),
+                             ext.device)[0]
+        out = torch.empty((rows, n + 2), device=ext.device)
+        lib, stream = kernel_lib.load_library(), kernel_lib.stream_ptr(ext.device)
+        ss = torch.empty((), device=ext.device)
+        t["kernel_ms"] = cuda_ms(lambda: lib.srcfd_shard_rb_fused(
+            addr, ext.data_ptr(), out.data_ptr(), b_ext.data_ptr(), ss.data_ptr(),
+            rank * rows, stream), 200)
+        t["launches_per_call"] = launches_per_call(
+            lambda: shard_rb_sweep(ext, b_ext, rank * rows, **call), shard_rb_sweep)
+        t["staged_launches_per_call"] = launches_per_call(
+            lambda: _shard_rb_sweep_staged(ext, b_ext, rank * rows, **call),
+            _shard_rb_sweep_staged)
+        if kb == 8:
+            t["plain_ms"] = cuda_ms(lambda: shard_rb_sweep_plain(ext, b_ext, rank * rows,
+                                                                 **call), 3)
+            t["bound_ms"], t["bound_by"] = bound_ms(*shard_work(rows + 2 * h, n + 2, rows, kb))
+        times[kb] = t
+    t8, t1 = times[8], times[1]
+    log(f"  shard_rb {rows}+2x16 rows x {n + 2}, kb=8: fused call {t8['ms']:.5f} ms "
+        f"({t8['launches_per_call']} launch; its C entry alone {t8['kernel_ms']:.5f}), with "
+        f"its host read {t8['ms_with_host_read']:.5f}; staged form {t8['staged_ms']:.5f} "
+        f"({t8['staged_launches_per_call']} launches), with its host read "
+        f"{t8['staged_ms_with_host_read']:.5f}; plain {t8['plain_ms']:.5f}; bound "
+        f"{t8['bound_ms']:.6f} ({t8['bound_by']}); kb=1: fused {t1['ms']:.5f} (C entry "
+        f"{t1['kernel_ms']:.5f}), staged {t1['staged_ms']:.5f}")
+    return dict(max_abs_err=worst, ms=t8["ms"], plain_ms=t8["plain_ms"],
+                bound_ms=t8["bound_ms"], bound_by=t8["bound_by"],
+                launches_per_call=t8["launches_per_call"], kernel_ms=t8["kernel_ms"],
+                ms_with_host_read=t8["ms_with_host_read"], staged_ms=t8["staged_ms"],
+                staged_launches_per_call=t8["staged_launches_per_call"],
+                staged_ms_with_host_read=t8["staged_ms_with_host_read"],
+                kb1=t1, gates=gates)
 
 
 def run_spmd_path(name, device, kw, steps):
@@ -1568,7 +1759,8 @@ def main():
              replaces="sr_for_cfd_tpu/ops/pallas_step.py:414",
              library_ms=None, **launches("fused_step"),
              **{k: fused_main[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "bound_by", "launches_per_call")},
+                                           "bound_ms", "bound_by", "launches_per_call",
+                                           "vcycles_per_call")},
              gates=fused),
         dict(name="tiled_momentum", route="cuda",
              source="sr_for_cfd_tpu_torch/csrc/tiled_momentum.cu",
@@ -1609,6 +1801,26 @@ def main():
     for row in rows:
         row["calls"] = row["launches"] / row["launches_per_call"]
         row["lost_s"] = row["calls"] * (row["ms"] - row["bound_ms"]) / 1e3
+    # row 3's own time: its call less the V-cycles (row 2's graph replays)
+    # inside it, each at one row 2 cycle's call time from this run
+    fused_row, mg = rows[2], kernels["400x400"]
+    cycle_ms = mg["ms"] / mg["cycles"]
+    fused_row["vcycle_call_ms"] = cycle_ms
+    fused_row["own_ms"] = fused_row["ms"] - fused_row["vcycles_per_call"] * cycle_ms
+    fused_row["own_lost_s"] = fused_row["calls"] * (fused_row["own_ms"]
+                                                    - fused_row["bound_ms"]) / 1e3
+    log(f"  fused_step: {fused_row['vcycles_per_call']} V-cycles per call at {cycle_ms:.5f} "
+        f"ms each: own time {fused_row['own_ms']:.5f} of {fused_row['ms']:.5f} ms, own Lost "
+        f"{fused_row['own_lost_s']:.4f} s of {fused_row['lost_s']:.4f}")
+    # row 5: its calls are the sweeps run (a batch after the exit adds
+    # no-op launches); Lost also at the loop's time per sweep
+    tiled = rows[7]
+    tiled["sweeps"] = by_path["tiled"]["tiled_rb_sweeps"]
+    tiled["host_reads"] = by_path["tiled"]["tiled_rb_reads"]
+    tiled["calls"] = tiled["sweeps"]
+    tiled["lost_s"] = tiled["calls"] * (tiled["ms"] - tiled["bound_ms"]) / 1e3
+    tiled["loop_lost_s"] = tiled["calls"] * (tiled["loop_ms_per_sweep"]
+                                             - tiled["bound_ms"]) / 1e3
     dist.destroy_process_group()
     shutil.rmtree(store_dir, ignore_errors=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,9 +1,12 @@
 // Device code shared by the red-black SOR pressure kernels: the residual and
-// the update of one cell. rb_sor.cu (the in-place half-sweeps and the
-// single-block loop) and shard_rb.cu (one whole sweep of a tiled row block,
-// for the tiled and the row-decomposed solvers) call the same expressions,
-// so they cannot drift apart.
+// the update of one cell, and the unified stall policy of their loops.
+// rb_sor.cu (the in-place half-sweeps and the single-block loop) and
+// shard_rb.cu (the tiled red-black kernel of the tiled and the
+// row-decomposed solvers) call the same expressions, so they cannot drift
+// apart.
 #pragma once
+
+#include <math.h>
 
 #include "common.cuh"
 
@@ -34,4 +37,27 @@ __device__ __forceinline__ float rb_residual(const float* p, const float* b,
   const float fd = c.volp * ((p[idx + ny2] - 2.0f * f + p[idx - ny2]) * c.inv_dx2 +
                              (p[idx + 1] - 2.0f * f + p[idx - 1]) * c.inv_dy2);
   return b[idx] - fd;
+}
+
+// The unified stall policy (ops/sweeps.py: stall_update / stalled); its
+// constants come from the wrapper, which takes them from ops/sweeps.py.
+struct StallPolicy {
+  float reset_ratio, ratio;
+  int patience, min_checks;
+};
+
+// One policy step after a check whose rms is `now` (the previous one
+// `rms`): a new margin-best resets `stale`, a descending check holds it,
+// anything else increments it; `best` propagates NaN as jnp.minimum does.
+__device__ __forceinline__ void stall_update(float now, float rms, float& best,
+                                             int& stale, const StallPolicy& sp) {
+  const bool new_best = now < sp.reset_ratio * best;
+  const bool descending = now < sp.ratio * rms;
+  stale = new_best ? 0 : (descending ? stale : stale + 1);
+  best = (isnan(best) || isnan(now)) ? NAN : fminf(best, now);
+}
+
+__device__ __forceinline__ bool stalled(int stale, int checks,
+                                        const StallPolicy& sp) {
+  return stale >= sp.patience && checks >= sp.min_checks;
 }

@@ -32,12 +32,6 @@
 
 #include "rb_ops.cuh"
 
-// unified stall policy (ops/sweeps.py: stall_update / stalled)
-struct StallPolicy {
-  float reset_ratio, ratio;
-  int patience, min_checks;
-};
-
 __global__ void __launch_bounds__(SRCFD_THREADS)
 rb_half_sweep_kernel(float* __restrict__ p, const float* __restrict__ b,
                      float* __restrict__ partials, int nx2, int ny2, RbCoef c,
@@ -92,8 +86,7 @@ rb_sor_loop_small_kernel(float* __restrict__ p_g, const float* __restrict__ b_g,
   // __syncthreads()
   float rms = INFINITY, best = INFINITY;
   int stale = 0, checks = 0, it = 0;
-  while (it < max_iter && rms >= tol &&
-         !(stale >= sp.patience && checks >= sp.min_checks)) {
+  while (it < max_iter && rms >= tol && !stalled(stale, checks, sp)) {
     float acc = 0.0f;
     for (int s = 0; s < check_every; ++s) {
       const bool last = s == check_every - 1;
@@ -110,10 +103,7 @@ rb_sor_loop_small_kernel(float* __restrict__ p_g, const float* __restrict__ b_g,
       }
     }
     const float now = sqrtf(srcfd_block_sum(acc, sh) / (float)n_cells);
-    const bool new_best = now < sp.reset_ratio * best;
-    const bool descending = now < sp.ratio * rms;
-    stale = new_best ? 0 : (descending ? stale : stale + 1);
-    best = (isnan(best) || isnan(now)) ? NAN : fminf(best, now);
+    stall_update(now, rms, best, stale, sp);
     rms = now;
     checks += 1;
     it += check_every;

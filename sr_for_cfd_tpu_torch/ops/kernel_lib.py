@@ -76,6 +76,9 @@ SIGNATURES = {
     "srcfd_tiled_rb_sweep": (_I, [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
                                   _P]),
     "srcfd_sum_finalize": (_I, [_P, _I, _P, _P]),
+    "srcfd_shard_rb_params_size": (_I, []),
+    "srcfd_shard_rb_init": (_I, []),
+    "srcfd_shard_rb_fused": (_I, [_P, _P, _P, _P, _P, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -157,8 +160,8 @@ def build(force: bool = False, verbose: bool = False) -> float:
 
 def load_library() -> ctypes.CDLL:
     """The kernel library, built if needed, with argtypes set and the
-    V-cycle tail's dynamic shared memory allowed (before any launch or
-    graph capture)."""
+    dynamic shared memory of the V-cycle tail and of the tiled red-black
+    kernel's fused form allowed (before any launch or graph capture)."""
     global _lib
     with _lock:
         if _lib is None:
@@ -169,6 +172,14 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = restype
                 fn.argtypes = argtypes
             check(lib.srcfd_mg_tail_init(), "mg_tail_init")
+            check(lib.srcfd_shard_rb_init(), "shard_rb_init")
+            from .shard_rb import Params
+
+            if lib.srcfd_shard_rb_params_size() != ctypes.sizeof(Params):
+                raise RuntimeError(
+                    f"ops/shard_rb.py's Params ({ctypes.sizeof(Params)} bytes) does "
+                    f"not match csrc/shard_rb.cu's ShardRbParams "
+                    f"({lib.srcfd_shard_rb_params_size()} bytes)")
             _lib = lib
         return _lib
 

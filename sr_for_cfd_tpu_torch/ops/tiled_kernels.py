@@ -4,13 +4,25 @@
 red-black SOR for volp * Laplacian(p) = rho/dt sum(Ff) with frozen ghosts,
 omega clamped to `optimal_sor`, the update (sor r) / ap_d, the rms after
 every sweep, the unified stall policy, and an exit on tolerance, stall or
-`max_iter`. It returns (p, sweeps_run). Each sweep is one launch of
-`csrc/shard_rb.cu`'s tiled red-black kernel on the whole padded grid (the
-row-decomposed solver's per-rank kernel, launched on a one-rank block
-with a one-row halo; the whole sweep and its residual partials in one
-pass over device memory, out of place between two buffers), then
-`srcfd_rms_finalize` over the partials and one host read; the exit is
-decided on the host in numpy float32.
+`max_iter`. It returns (p, sweeps_run).
+
+Each sweep is one launch of the fused form of `csrc/shard_rb.cu`'s tiled
+red-black kernel on the whole padded grid (the row-decomposed solver's
+per-rank kernel, on a one-rank block with a one-row halo, kb = 1): the
+whole sweep and its residual sum in one pass, out of place between two
+buffers. The exit is decided on the card: the launch's last block takes
+the rms, runs the stall policy (as `rb_sor.cu`'s single-block loop does)
+and sets `done` in a small device state (rms, best, stale, checks, it,
+done); every block of a later launch returns at once when `done` is set.
+So the host enqueues batches of BATCH launches (`_TiledLoop`, cached per
+shape and setting, built by the solver's `precompile()`) and reads the
+state once per batch: ceil(sweeps / BATCH) reads, at most ceil(max_iter /
+BATCH) batches. Each batch's state is copied to pinned host memory behind
+it, and the next batch is enqueued before the host waits for that copy, so
+the card does not idle while the host reads; a batch enqueued after the
+exit runs as no-op launches. The result is the buffer that sweep number
+`it` wrote. `exit_state_step` is the plain twin of the last block's state
+update.
 
 The JAX function's `slab_rows` and `check_every` are left out: neither
 changes the result (the sweep is the same at every slab height, and the
@@ -20,21 +32,179 @@ solver passes neither, and nothing in the port would set them.
 On a CPU tensor the wrapper runs the plain PyTorch version,
 `pressure_kernels.solve_pressure_plain(..., check_every=1, divide=True)`,
 which computes exactly this function. On a CUDA tensor it launches the
-kernel or raises. `tiled_solve_pressure.launches` counts kernel launches,
-two per sweep (the sweep and the finalize).
+kernel or raises. `tiled_solve_pressure.launches` counts kernel launches
+(a batch after the exit adds its no-ops), `.sweeps` the sweeps run and
+`.reads` the host reads of the loop state.
+`_tiled_solve_pressure_host_exit` is the loop before the device-side exit
+(the one-sweep kernel, `srcfd_rms_finalize` and a host read per sweep),
+which only the card gates run, to hold the loop against it bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from . import kernel_lib
+from . import kernel_lib, shard_rb
 from .pressure_kernels import _coefficients, solve_pressure_plain
 from .stencil import FaceFluxes
-from .sweeps import stall_update, stalled
+from .sweeps import (
+    STALL_MIN_CHECKS,
+    STALL_PATIENCE,
+    STALL_RATIO,
+    STALL_RESET_RATIO,
+    stall_update,
+    stalled,
+)
+
+# launches enqueued per host read of the loop state
+BATCH = 8
+
+
+@dataclass
+class ExitState:
+    """The loop state the kernel keeps on the card (csrc/shard_rb.cu
+    TiledState), in numpy float32 and ints."""
+
+    rms: np.float32 = np.float32(np.inf)
+    best: np.float32 = np.float32(np.inf)
+    stale: int = 0
+    checks: int = 0
+    it: int = 0
+    done: int = 0
+
+
+def exit_state_step(s: ExitState, now: np.float32, tol: np.float32,
+                    max_iter: int) -> ExitState:
+    """Plain twin of the kernel's last block after a sweep whose rms is
+    `now`, written as the C code is: the stall policy of
+    `rb_sor_loop_small_kernel` (NaN-propagating best), then `done` when the
+    host loop's condition fails."""
+    f = np.float32
+    new_best = now < f(STALL_RESET_RATIO) * s.best
+    descending = now < f(STALL_RATIO) * s.rms
+    stale = 0 if new_best else (s.stale if descending else s.stale + 1)
+    best = f(np.nan) if (np.isnan(s.best) or np.isnan(now)) else f(np.fmin(s.best, now))
+    checks, it = s.checks + 1, s.it + 1
+    stop = stale >= STALL_PATIENCE and checks >= STALL_MIN_CHECKS
+    done = int(not (it < max_iter and now >= tol and not stop))
+    return ExitState(f(now), best, stale, checks, it, done)
+
+
+def _state_words(s: ExitState) -> np.ndarray:
+    """An ExitState as the kernel's 8 int32 words."""
+    w = np.zeros(8, dtype=np.int32)
+    w[:2].view(np.float32)[:] = (s.rms, s.best)
+    w[2:6] = (s.stale, s.checks, s.it, s.done)
+    return w
+
+
+def _first_done(tol32: np.float32, max_iter: int) -> bool:
+    """The host loop's condition before any sweep, failed."""
+    return not (0 < max_iter and np.float32(np.inf) >= tol32 and not stalled(0, 0))
+
+
+class _TiledLoop:
+    """The device-exit loop of one shape and setting: two field buffers
+    with the ghost ring, the right-hand side, the kernel's partials, ticket
+    and loop state, owned here as long as the parameter block that points
+    at them. `_plan` overrides the fused kernel's plan (the card gates hold
+    the other tile side against the default)."""
+
+    def __init__(self, nx2: int, ny2: int, device, inv_dx2: float, inv_dy2: float,
+                 volp: float, sor: float, ap_d: float, tol: float, max_iter: int,
+                 *, _plan=None):
+        self.device = torch.device(device)
+        self.lib = kernel_lib.load_library()
+        self.nx2, self.ny2 = nx2, ny2
+        self.max_iter, self.tol32 = int(max_iter), np.float32(tol)
+
+        def zeros(shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        self.bufs = [zeros((nx2, ny2)), zeros((nx2, ny2))]
+        self.b = zeros((nx2, ny2))
+        self.plan = _plan or shard_rb.shard_rb_plan(nx2, ny2, 1, 1)
+        self.partials = zeros(self.plan.n_sum)
+        self.ticket = zeros(1, torch.int32)
+        self.state = zeros(8, torch.int32)
+        self.fresh = torch.from_numpy(_state_words(ExitState())).to(self.device)
+        # each batch's state on the host: pinned, copied behind the batch
+        on_card = self.device.type == "cuda"
+        self.seen = [torch.zeros(8, dtype=torch.int32, pin_memory=on_card)
+                     for _ in range(2)]
+        self.copied = [torch.cuda.Event() if on_card else None for _ in range(2)]
+        self.params = shard_rb.make_params(
+            self.plan, nx2, ny2, nxg=nx2 - 2, h=1, mode=1, inv_dx2=inv_dx2,
+            inv_dy2=inv_dy2, volp=volp, sor=sor, inv_ap=1.0 / ap_d, ap_d=ap_d,
+            partials=self.partials.data_ptr(), ticket=self.ticket.data_ptr(),
+            state=self.state.data_ptr(), tol=tol, n_cells=float((nx2 - 2) * (ny2 - 2)),
+            stall=(STALL_RESET_RATIO, STALL_RATIO, STALL_PATIENCE, STALL_MIN_CHECKS),
+            max_iter=self.max_iter)
+        self.addr = ctypes.addressof(self.params)
+
+    def launch(self, i: int, stream: int) -> None:
+        """Sweep number i + 1: bufs[i % 2] -> the own rows of bufs[(i + 1) % 2]."""
+        src, dst = self.bufs[i % 2], self.bufs[(i + 1) % 2]
+        kernel_lib.check(self.lib.srcfd_shard_rb_fused(
+            self.addr, src.data_ptr(), dst.data_ptr() + 4 * self.ny2, self.b.data_ptr(),
+            None, 0, stream), "tiled_rb_fused")
+
+    def enqueue(self, k: int, stream: int) -> None:
+        """Batch k (sweeps k * BATCH + 1 ..., at most max_iter in all), then
+        the copy of the state behind it."""
+        first = k * BATCH
+        n = min(BATCH, self.max_iter - first)
+        for i in range(first, first + n):
+            self.launch(i, stream)
+        tiled_solve_pressure.launches += n
+        self.seen[k % 2].copy_(self.state, non_blocking=True)
+        if self.copied[k % 2] is not None:
+            self.copied[k % 2].record()
+
+    def solve(self, p: torch.Tensor, rhs: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        """Sweeps from p (its ghost ring frozen) for volp Lap(p) = rhs (the
+        interior right-hand side); returns (p, sweeps_run)."""
+        if _first_done(self.tol32, self.max_iter):
+            return p.clone(memory_format=torch.contiguous_format), 0
+        self.bufs[0].copy_(p)
+        # the kernel writes rows 1..nx
+        self.bufs[1][0].copy_(p[0])
+        self.bufs[1][-1].copy_(p[-1])
+        self.b[1:-1, 1:-1].copy_(rhs)
+        self.state.copy_(self.fresh)
+        stream = kernel_lib.stream_ptr(self.device)
+        batches = -(-self.max_iter // BATCH)
+        words = None
+        self.enqueue(0, stream)
+        for k in range(batches):
+            if k + 1 < batches:
+                self.enqueue(k + 1, stream)
+            if self.copied[k % 2] is not None:
+                self.copied[k % 2].synchronize()
+            tiled_solve_pressure.reads += 1
+            words = self.seen[k % 2].tolist()
+            if words[5]:
+                break
+        if words is None or not words[5]:
+            raise RuntimeError("the tiled loop's device state never set done")
+        it = words[4]
+        tiled_solve_pressure.sweeps += it
+        return self.bufs[it % 2].clone(), it
+
+
+@functools.lru_cache(maxsize=4)
+def cached_loop(nx2, ny2, device: str, inv_dx2, inv_dy2, volp, sor, ap_d, tol,
+                max_iter) -> _TiledLoop:
+    """The device-exit loop of one setting, built once: every solve with
+    this setting reuses its buffers."""
+    return _TiledLoop(nx2, ny2, device, inv_dx2, inv_dy2, volp, sor, ap_d, tol,
+                      max_iter)
 
 
 def tiled_solve_pressure(
@@ -56,6 +226,38 @@ def tiled_solve_pressure(
         return solve_pressure_plain(
             p, ff, dx=dx, dy=dy, dt=dt, rho=rho, volp=volp, tol=tol,
             max_iter=max_iter, check_every=1, sor=sor, divide=True)
+    kernel_lib.check_field(p, "tiled red-black")
+    nx2, ny2 = p.shape
+    inv_dx2, inv_dy2, sor, _, ap_d = _coefficients(dx, dy, volp, sor,
+                                                   nx2 - 2, ny2 - 2)
+    loop = cached_loop(nx2, ny2, str(p.device), inv_dx2, inv_dy2, volp, sor, ap_d,
+                       float(tol), int(max_iter))
+    return loop.solve(p, (rho / dt) * ff.divergence_sum())
+
+
+tiled_solve_pressure.launches = 0
+tiled_solve_pressure.reads = 0
+tiled_solve_pressure.sweeps = 0
+
+
+def _tiled_solve_pressure_host_exit(
+    p: torch.Tensor,
+    ff: FaceFluxes,
+    *,
+    dx: float,
+    dy: float,
+    dt: float,
+    rho: float,
+    volp: float,
+    tol: float = 1e-6,
+    max_iter: int = 1000,
+    sor: float = 1.0,
+) -> Tuple[torch.Tensor, int]:
+    """The loop before the device-side exit: per sweep one launch of the
+    one-sweep kernel, `srcfd_rms_finalize` and a host read, the exit decided
+    on the host in numpy float32 (two launches per sweep, counted in
+    `_tiled_solve_pressure_host_exit.launches`). Card only; the gates hold
+    `tiled_solve_pressure` against it."""
     kernel_lib.check_field(p, "tiled red-black")
     nx2, ny2 = p.shape
     inv_dx2, inv_dy2, sor, _, ap_d = _coefficients(dx, dy, volp, sor,
@@ -84,7 +286,7 @@ def tiled_solve_pressure(
         kernel_lib.check(lib.srcfd_rms_finalize(
             partials.data_ptr(), n_part, n_cells, rms_dev.data_ptr(), stream),
             "rms_finalize")
-        tiled_solve_pressure.launches += 2
+        _tiled_solve_pressure_host_exit.launches += 2
         cur, nxt = nxt, cur
         now = t(rms_dev.item())
         stale, best = stall_update(now, rms, best, stale)
@@ -94,4 +296,4 @@ def tiled_solve_pressure(
     return cur, it
 
 
-tiled_solve_pressure.launches = 0
+_tiled_solve_pressure_host_exit.launches = 0

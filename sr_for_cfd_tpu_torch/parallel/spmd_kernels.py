@@ -25,23 +25,32 @@ On a CPU tensor the wrapper runs `shard_rb_sweep_plain`, a direct
 transcription of `_shard_sweep_kernel` whose sum follows the kernel's fixed
 order (32 x 32 tiles of the block's inner cells, 256 terms per tile summed
 as the kernel's threads sum them, then the tiles). On a CUDA tensor it
-launches `csrc/shard_rb.cu` (kb sweeps, one launch each, then the sum of
-the partials: kb + 1 launches, counted in `shard_rb_sweep.launches`) or
-raises. The kernel leaves the block's first and last rows as they are,
-where the plain version updates them with the row beyond replicated: both
-differ from the global sweep there, by the same erosion, so the own rows
-and `ss` agree bit for bit on the card.
+launches the fused form of `csrc/shard_rb.cu` once (the kb sweeps and the
+sum, one launch, counted in `shard_rb_sweep.launches`; plan from
+`ops/shard_rb.py`) or raises. A kb whose tile does not fit the fused
+form's shared memory (kb > 33, `shard_rb.fits`) runs on the same file's
+one-sweep form instead: kb one-sweep launches and the sum, kb + 1 counted.
+The kernel leaves the block's first and last rows as they are, where the
+plain version updates them with the row beyond replicated: both differ
+from the global sweep there, by the same erosion, so the own rows and `ss`
+agree bit for bit on the card.
+
+`_shard_rb_sweep_staged` is that one-sweep form at every kb (the form
+before the fused kernel: kb one-sweep launches between two clones of the
+block, then the sum of the partials). The card gates call it, to hold the
+fused form bit for bit against it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..ops import kernel_lib
+from ..ops import kernel_lib, shard_rb
 from .mesh import ring_exchange
 
 # csrc/shard_rb.cu's TILE, which the plain sum follows (the card's bit-equal
@@ -157,6 +166,28 @@ def _check_block(ext: torch.Tensor, b_ext: torch.Tensor, h: int) -> None:
                          f"rows inside a {h}-row halo")
 
 
+@functools.lru_cache(maxsize=64)
+def _fused_params(R: int, W: int, h: int, kb: int, nxg: int, inv_dx2: float,
+                  inv_dy2: float, volp: float, inv_ap: float, device: torch.device):
+    """(the parameter block's address, (the block, its partials, its
+    ticket)) of one call site. The entry owns every tensor whose address
+    the block holds, so that none is freed while the block can still be
+    launched; the ticket starts at 0 and the kernel's last block resets it."""
+    partials = torch.empty(shard_rb.n_partials(R, W), dtype=torch.float32, device=device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    params = shard_rb.make_params(
+        shard_rb.shard_rb_plan(R, W, h, kb), R, W, nxg=nxg, h=h, mode=2,
+        inv_dx2=inv_dx2, inv_dy2=inv_dy2, volp=volp, inv_ap=inv_ap,
+        partials=partials.data_ptr(), ticket=ticket.data_ptr())
+    return ctypes.addressof(params), (params, partials, ticket)
+
+
+def _on_card(ext: torch.Tensor, b_ext: torch.Tensor, h: int) -> None:
+    if ext.device.type != "cuda":
+        raise ValueError(f"expected a CPU or CUDA tensor, got {ext.device}")
+    _check_block(ext, b_ext, h)
+
+
 def shard_rb_sweep(ext: torch.Tensor, b_ext: torch.Tensor, row0: int, *,
                    nxg: int, inv_dx2: float, inv_dy2: float, volp: float,
                    sor: float, h: int = 2, kb: int = 1
@@ -167,13 +198,54 @@ def shard_rb_sweep(ext: torch.Tensor, b_ext: torch.Tensor, row0: int, *,
     if ext.device.type == "cpu":
         return shard_rb_sweep_plain(ext, b_ext, row0, nxg=nxg, inv_dx2=inv_dx2,
                                     inv_dy2=inv_dy2, volp=volp, sor=sor, h=h, kb=kb)
-    if ext.device.type != "cuda":
-        raise ValueError(f"expected a CPU or CUDA tensor, got {ext.device}")
-    _check_block(ext, b_ext, h)
+    _on_card(ext, b_ext, h)
+    inv_ap = _coefficient(inv_dx2, inv_dy2, volp, sor)
+    if not shard_rb.fits(kb):
+        result = _one_sweep_form(ext, b_ext, row0, nxg, h, kb, inv_dx2, inv_dy2, volp,
+                                 inv_ap)
+        shard_rb_sweep.launches += kb + 1
+        return result
+    lib = kernel_lib.load_library()
+    R, W = ext.shape
+    addr, _ = _fused_params(R, W, h, kb, nxg, inv_dx2, inv_dy2, volp, inv_ap, ext.device)
+    out = torch.empty((R - 2 * h, W), dtype=torch.float32, device=ext.device)
+    ss = torch.empty((), dtype=torch.float32, device=ext.device)
+    kernel_lib.check(lib.srcfd_shard_rb_fused(
+        addr, ext.data_ptr(), out.data_ptr(), b_ext.data_ptr(), ss.data_ptr(), row0,
+        kernel_lib.stream_ptr(ext.device)), "shard_rb_fused")
+    shard_rb_sweep.launches += 1
+    return out, ss
+
+
+shard_rb_sweep.launches = 0
+
+
+def _shard_rb_sweep_staged(ext: torch.Tensor, b_ext: torch.Tensor, row0: int, *,
+                           nxg: int, inv_dx2: float, inv_dy2: float, volp: float,
+                           sor: float, h: int = 2, kb: int = 1
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-rank sweep before the fused form: kb one-sweep launches of
+    `csrc/shard_rb.cu` between two clones of the block, then the sum of the
+    last one's partials (kb + 1 launches, counted in
+    `_shard_rb_sweep_staged.launches`). Card only; the gates hold
+    `shard_rb_sweep` against it."""
+    _refuse_halo(h, kb)
+    _on_card(ext, b_ext, h)
+    result = _one_sweep_form(ext, b_ext, row0, nxg, h, kb, inv_dx2, inv_dy2, volp,
+                             _coefficient(inv_dx2, inv_dy2, volp, sor))
+    _shard_rb_sweep_staged.launches += kb + 1
+    return result
+
+
+_shard_rb_sweep_staged.launches = 0
+
+
+def _one_sweep_form(ext, b_ext, row0, nxg, h, kb, inv_dx2, inv_dy2, volp, inv_ap):
+    """kb launches of the one-sweep kernel and the sum of the last one's
+    partials, on a checked block; the callers count the kb + 1 launches."""
     lib = kernel_lib.load_library()
     R, W = ext.shape
     rows = R - 2 * h
-    inv_ap = _coefficient(inv_dx2, inv_dy2, volp, sor)
     stream = kernel_lib.stream_ptr(ext.device)
     n_part = lib.srcfd_shard_rb_partials(R, W)
     partials = torch.empty(n_part, dtype=torch.float32, device=ext.device)
@@ -190,11 +262,7 @@ def shard_rb_sweep(ext: torch.Tensor, b_ext: torch.Tensor, row0: int, *,
         src = dst
     kernel_lib.check(lib.srcfd_sum_finalize(partials.data_ptr(), n_part,
                                             ss.data_ptr(), stream), "sum_finalize")
-    shard_rb_sweep.launches += kb + 1
     return src[h:rows + h], ss[0]
-
-
-shard_rb_sweep.launches = 0
 
 
 def extend_b_halo(b: torch.Tensor, group=None, h: int = 2) -> torch.Tensor:

@@ -40,8 +40,9 @@ from ..utils.naming import (
 
 def kernel_launch_counts() -> Dict[str, int]:
     """Launch counters of the CUDA kernel wrappers (kernels run, a graph
-    replay counting its kernels), the V-cycle graphs' replays, and the RRE
-    jumps attempted and taken."""
+    replay counting its kernels), the V-cycle graphs' replays, the tiled
+    loop's sweeps and host reads of its device state, and the RRE jumps
+    attempted and taken."""
     from ..ops import stream_kernels as sk
     from ..ops.extrapolate import rre_extrapolate
     from ..ops.mg_kernels import mg_solve_pressure_kernel
@@ -61,6 +62,8 @@ def kernel_launch_counts() -> Dict[str, int]:
             "stream_level1_replays": sk.level1_correction.replays,
             "stream_pass_b": sk.stream_pass_b.launches,
             "tiled_rb_pressure": tiled_solve_pressure.launches,
+            "tiled_rb_sweeps": tiled_solve_pressure.sweeps,
+            "tiled_rb_reads": tiled_solve_pressure.reads,
             "shard_rb_pressure": shard_rb_sweep.launches,
             "rre_attempts": rre_extrapolate.attempts,
             "rre_taken": rre_extrapolate.taken}

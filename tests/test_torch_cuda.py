@@ -311,8 +311,12 @@ def test_tiled_sweep_matches_plain(card, lx, ly):
     """The tiled red-black sweep (row 5) on a 130x97 grid, which no tile
     divides: one sweep bit-equal to the plain version, and a solve at omega
     1.9 with equal counts and fields, also against row 1's two-launch form
-    (divide=True, check_every=1), which computes the same function."""
-    from sr_for_cfd_tpu_torch.ops.tiled_kernels import tiled_solve_pressure
+    (divide=True, check_every=1), which computes the same function. The
+    device-exit loop launches whole batches, one more than it reads, and
+    reads the state once per batch."""
+    import math
+
+    from sr_for_cfd_tpu_torch.ops.tiled_kernels import BATCH, tiled_solve_pressure
 
     p, ff, geo = _problem(130 + 97, 130, 97, lx, ly, card)
     kw = dict(geo, sor=1.9)
@@ -322,14 +326,58 @@ def test_tiled_sweep_matches_plain(card, lx, ly):
     torch.cuda.synchronize()
     assert torch.equal(out, ref) and n_out == n_ref == 1
     before = tiled_solve_pressure.launches
+    reads = tiled_solve_pressure.reads
     out, n_out = tiled_solve_pressure(p, ff, **kw, tol=1e-3, max_iter=300)
-    assert tiled_solve_pressure.launches == before + 2 * n_out
+    batches = math.ceil(n_out / BATCH)
+    assert tiled_solve_pressure.reads == reads + batches
+    # and the batch after it, enqueued before the read (no-op launches)
+    assert tiled_solve_pressure.launches == before + min((batches + 1) * BATCH, 300)
     ref, n_ref = solve_pressure_plain(p, ff, **row1, tol=1e-3, max_iter=300)
     two, n_two = solve_pressure_kernel(p, ff, **row1, tol=1e-3, max_iter=300)
     _close(out, ref)
     _close(two, out)
     assert n_out == n_ref == n_two < 300
     assert torch.equal(out[0], p[0]) and torch.equal(out[:, -1], p[:, -1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["default plan", "tile 32"])
+def test_tiled_device_exit_matches_host_exit(card, form):
+    """The device-exit loop (on its own plan, and on 32-cell tiles)
+    against the host-exit loop (the one-sweep kernel, a finalize and a host read per
+    sweep) on the 130x97 grid: bit-equal fields and equal counts with the
+    exit by max_iter at every position of a batch, by the tolerance and by
+    the stall policy (tol 0 on a 34x30 grid: the rms reaches the float32
+    floor)."""
+    from sr_for_cfd_tpu_torch.ops import shard_rb
+    from sr_for_cfd_tpu_torch.ops.pressure_kernels import _coefficients
+    from sr_for_cfd_tpu_torch.ops.tiled_kernels import (
+        BATCH,
+        _tiled_solve_pressure_host_exit,
+        _TiledLoop,
+    )
+
+    for nx, ny, tols, iters in ((130, 97, (0.0, 1e-3), range(1, 2 * BATCH + 2)),
+                                (34, 30, (0.0,), (20000,))):
+        p, ff, geo = _problem(nx + ny, nx, ny, 1.0, 1.0, card)
+        inv_dx2, inv_dy2, sor, _, ap_d = _coefficients(geo["dx"], geo["dy"], geo["volp"],
+                                                       1.9, nx, ny)
+        plan = None if form == "default plan" else shard_rb.shard_rb_plan(
+            nx + 2, ny + 2, 1, 1, ot=32)
+        rhs = (geo["rho"] / geo["dt"]) * ff.divergence_sum()
+        for tol in tols:
+            for max_iter in (iters if tol == 0.0 else (300,)):
+                loop = _TiledLoop(nx + 2, ny + 2, card, inv_dx2, inv_dy2, geo["volp"], sor,
+                                  ap_d, tol, max_iter, _plan=plan)
+                out, n = loop.solve(p, rhs)
+                ref, n_ref = _tiled_solve_pressure_host_exit(p, ff, **geo, sor=1.9, tol=tol,
+                                                             max_iter=max_iter)
+                torch.cuda.synchronize()
+                assert n == n_ref and torch.equal(out, ref), (nx, tol, max_iter)
+                if nx == 34:
+                    assert n < max_iter  # the stall policy ended it
+                elif tol == 0.0:
+                    assert n == max_iter
 
 
 @pytest.mark.cuda
@@ -351,14 +399,15 @@ def test_tiled_wrapper_raises_on_what_the_kernel_does_not_take(card):
                                        (8, "one rank, ghost rows"),
                                        (4, "one rank, zero exterior")])
 def test_shard_sweep_matches_plain(card, kb, layout):
-    """The per-rank red-black sweep (row 9) against its plain version: own
-    rows and the residual sum bit-equal, kb + 1 launches. Blocks no tile
-    divides: a 130x97 block of an interior rank (row0 500 of 2048 rows),
-    and one rank's block of 100x97 cells (row0 0, both ends beyond the
-    domain) as the sweeps route builds it (the ghost row repeated beyond
-    the domain) and as the V-cycle smoother does (zero rows and columns
-    beyond it)."""
+    """The per-rank red-black sweep (row 9) against its plain version and
+    the staged form (kb one-sweep launches and the sum): own rows and the
+    residual sum bit-equal, one launch. Blocks no tile divides: a 130x97
+    block of an interior rank (row0 500 of 2048 rows), and one rank's block
+    of 100x97 cells (row0 0, both ends beyond the domain) as the sweeps
+    route builds it (the ghost row repeated beyond the domain) and as the
+    V-cycle smoother does (zero rows and columns beyond it)."""
     from sr_for_cfd_tpu_torch.parallel.spmd_kernels import (
+        _shard_rb_sweep_staged,
         shard_rb_sweep,
         shard_rb_sweep_plain,
     )
@@ -383,11 +432,127 @@ def test_shard_sweep_matches_plain(card, kb, layout):
               sor=1.9, h=h, kb=kb)
     before = shard_rb_sweep.launches
     own, ss = shard_rb_sweep(ext, b, row0, **kw)
-    assert shard_rb_sweep.launches == before + kb + 1
+    assert shard_rb_sweep.launches == before + 1
     ref, ss_ref = shard_rb_sweep_plain(ext, b, row0, **kw)
+    staged_before = _shard_rb_sweep_staged.launches
+    st, ss_st = _shard_rb_sweep_staged(ext, b, row0, **kw)
+    assert _shard_rb_sweep_staged.launches == staged_before + kb + 1
     torch.cuda.synchronize()
     assert own.shape == (rows, width)
     assert torch.equal(own, ref) and torch.equal(ss, ss_ref)
+    assert torch.equal(own, st) and torch.equal(ss, ss_st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kb", range(1, 9))
+@pytest.mark.parametrize("ot", [None, 32, 64])
+def test_shard_fused_form_matches_staged_form(card, monkeypatch, kb, ot):
+    """The fused form at kb 1-8 on odd band shapes (a 77-row band of a
+    301-row grid, 45 and 131 columns, an interior and the last rank), on
+    its own plan and on either tile side, against the staged form and the
+    plain version: own rows and sum bit-equal."""
+    from sr_for_cfd_tpu_torch.ops import shard_rb
+    from sr_for_cfd_tpu_torch.parallel import spmd_kernels as sk
+
+    g = np.random.default_rng(10 * kb + (ot or 0))
+    h, rows, nxg = 2 * kb, 77, 301
+    for width, row0 in ((45, 120), (131, nxg - rows)):
+        ext, b = (torch.tensor(g.standard_normal((rows + 2 * h, width)), dtype=torch.float32,
+                               device=card) for _ in range(2))
+        kw = dict(nxg=nxg, inv_dx2=301.0 ** 2, inv_dy2=129.0 ** 2, volp=1.0 / (301 * 129),
+                  sor=1.7, h=h, kb=kb)
+        if ot is not None:  # the wrapper's cached plan, replaced for this call
+            plan = shard_rb.shard_rb_plan(rows + 2 * h, width, h, kb, ot=ot)
+            sk._fused_params.cache_clear()
+            monkeypatch.setattr(shard_rb, "shard_rb_plan", lambda *a, **k: plan)
+        own, ss = sk.shard_rb_sweep(ext, b, row0, **kw)
+        if ot is not None:
+            monkeypatch.undo()
+            sk._fused_params.cache_clear()
+        st, ss_st = sk._shard_rb_sweep_staged(ext, b, row0, **kw)
+        ref, ss_ref = sk.shard_rb_sweep_plain(ext, b, row0, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(own, st) and torch.equal(ss, ss_st)
+        assert torch.equal(own, ref) and torch.equal(ss, ss_ref)
+
+
+def _shard_case(seed, rows, width, kb, nxg=301, row0=120):
+    g = np.random.default_rng(seed)
+    h = 2 * kb
+    ext, b = (torch.tensor(g.standard_normal((rows + 2 * h, width)), dtype=torch.float32,
+                           device="cuda") for _ in range(2))
+    kw = dict(nxg=nxg, inv_dx2=301.0 ** 2, inv_dy2=129.0 ** 2, volp=1.0 / (301 * 129),
+              sor=1.7, h=h, kb=kb)
+    return ext, b, row0, kw
+
+
+@pytest.mark.cuda
+def test_shard_fused_survives_parameter_cache_turnover(card):
+    """More call sites than the wrapper's cache of parameter blocks holds,
+    then the first again, with no cache cleared: every call bit-equal to the
+    staged form, and each call's `ss` its own (a later call on a block of
+    the same shape leaves an earlier `ss` as it was)."""
+    from sr_for_cfd_tpu_torch.parallel import spmd_kernels as sk
+
+    n_sites = sk._fused_params.cache_info().maxsize + 6
+    cases = [_shard_case(i, 20 + i % 7, 40 + i, 1 + i % 3) for i in range(n_sites)]
+    results = [sk.shard_rb_sweep(ext, b, row0, **kw) for ext, b, row0, kw in cases]
+    ext, b, row0, kw = cases[0]
+    again = sk.shard_rb_sweep(ext, b, row0, **kw)
+    # the same shape, other values: the first call's ss stays as it was
+    other = sk.shard_rb_sweep(ext + 1.0, b, row0, **kw)
+    staged = [sk._shard_rb_sweep_staged(ext, b, row0, **kw) for ext, b, row0, kw in cases]
+    torch.cuda.synchronize()
+    for (own, ss), (st, ss_st) in zip(results + [again], staged + staged[:1]):
+        assert torch.equal(own, st) and torch.equal(ss, ss_st)
+    assert not torch.equal(other[1], again[1])
+    assert torch.equal(results[0][1], staged[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kb", [33, 34])
+def test_shard_sweep_past_the_fused_budget(card, kb):
+    """kb 33 is the fused form's largest (one launch); kb 34 passes its
+    shared memory and runs on the one-sweep form (kb + 1 launches): both
+    bit-equal to the staged form and the plain version, as JAX's kernel
+    takes any kb the halo buys."""
+    from sr_for_cfd_tpu_torch.parallel import spmd_kernels as sk
+
+    ext, b, row0, kw = _shard_case(kb, 40, 50, kb, nxg=400, row0=150)
+    before = sk.shard_rb_sweep.launches
+    own, ss = sk.shard_rb_sweep(ext, b, row0, **kw)
+    assert sk.shard_rb_sweep.launches - before == (1 if kb == 33 else kb + 1)
+    st, ss_st = sk._shard_rb_sweep_staged(ext, b, row0, **kw)
+    ref, ss_ref = sk.shard_rb_sweep_plain(ext, b, row0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(own, st) and torch.equal(ss, ss_st)
+    assert torch.equal(own, ref) and torch.equal(ss, ss_ref)
+
+
+@pytest.mark.cuda
+def test_shard_fused_refuses_a_plan_that_is_not_its_own(card):
+    """A plan the C entry does not take (shared memory that does not match
+    its tile and kb) is refused at the launch; nothing falls back."""
+    from sr_for_cfd_tpu_torch.ops import kernel_lib, shard_rb
+
+    lib = kernel_lib.load_library()
+    ext = torch.zeros((40, 40), dtype=torch.float32, device=card)
+    plan = shard_rb.shard_rb_plan(40, 40, 2, 1)
+    scratch = [torch.zeros(plan.n_sum, device=card), torch.zeros(1, dtype=torch.int32,
+                                                                  device=card)]
+    big = plan._replace(smem=shard_rb.SMEM_BUDGET + 4)
+    prm = shard_rb.make_params(big, 40, 40, nxg=36, h=2, mode=2, inv_dx2=1.0, inv_dy2=1.0,
+                               volp=1.0, inv_ap=-0.25, partials=scratch[0].data_ptr(),
+                               ticket=scratch[1].data_ptr())
+    out = torch.empty((36, 40), device=card)
+    import ctypes
+
+    code = lib.srcfd_shard_rb_fused(ctypes.addressof(prm), ext.data_ptr(), out.data_ptr(),
+                                    ext.data_ptr(), scratch[0].data_ptr(), 0,
+                                    kernel_lib.stream_ptr(card))
+    assert code != 0
+    with pytest.raises(RuntimeError):
+        kernel_lib.check(code, "shard_rb_fused")
 
 
 @pytest.mark.cuda
