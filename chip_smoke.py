@@ -16,9 +16,22 @@ no result line:
    five gates: design (a) on the BFS 10x10 coarse settings (K=500) and a
    16x16 QUICK cavity (K=4), design (b) forced on a 64x64 QUICK cavity,
    at 400x400 BFS in multigrid mode (K=10) and in point-iteration mode
-   (K=1, omega 1.0). The big-grid kernels at 2048x2048: a QUICK momentum
-   pass (3 sweeps) and a momentum solve, the streamed V-cycle's pass A,
-   level-1 correction and pass B each alone, one forced streamed cycle and
+   (K=1, omega 1.0), each design (b) gate also bit-equal to its staged
+   form (a launch per momentum half-sweep with a host read per check, a
+   launch per stage), whose call is timed too. The fused momentum pass
+   (rows 3 and 4): one pass bit-equal (field and rms) to the staged
+   half-sweeps and within REL_TOL of the plain version at 2048x2048
+   (QUICK, 3 sweeps, the old field interior) and 402x402 (the north
+   star's UPWIND, 1 sweep, the old field padded), each alone timed
+   against the staged form; the big-grid momentum wrapper's pass and a
+   10-pass solve against the plain version and bit-equal to the staged
+   (host-exit) loop, also cut by max_iter at 1, 2, 5 and 9 passes; a k
+   past the pass's shared memory (14) on the staged form; the fused
+   step's device-exit momentum loop bit-equal to its host-exit loop at
+   every batch position and on a north-star solve, both loops timed with
+   their launches and host reads. The streamed V-cycle at 2048x2048:
+   pass A, level-1 correction and pass B each alone, one forced streamed
+   cycle and
    a 5-cycle streamed solve. The tiled red-black sweep (row 5) at
    2048x2048 (omega 1.9), the device-exit loop (the fused kernel, the
    exit state on the card, batches of 8 launches, one host read per
@@ -87,7 +100,10 @@ no result line:
    per-rank sweep), the bench's 200 steps.
    In 3, 4, 5, 5b, 5c and 5d the launch counters are set to 0 just before
    and read just after; each kernel of the path must have launched in its
-   phases, and each fine phase of 4 must have attempted an RRE jump. 5c
+   phases, and each fine phase of 4 must have attempted an RRE jump. 4
+   prints design (b)'s launches and momentum host reads per fine step and
+   5 the momentum launches and host reads per step, both the histogram of
+   sweeps per device-exit momentum solve. 5c
    and 5d print ms/iter, inner counts, row 9 launches and collectives per
    step.
 6. references: the non-fused configuration of 3 and the fused one of 4 (with
@@ -545,7 +561,11 @@ FUSED_GATES = [
 
 def phase_fused(device):
     """The whole-step kernel against its plain version on the same seeded
-    state: fields within REL_TOL of the largest |value|, equal counts."""
+    state: fields within REL_TOL of the largest |value|, equal counts;
+    design (b) bit-equal to its staged form (its momentum on the fused
+    pass's device-exit loop, its stages folded, against half-sweep
+    launches with a host read per check and a launch per stage), whose
+    call is timed too."""
     import torch
 
     from sr_for_cfd_tpu_torch.ops.mg_kernels import mg_solve_pressure_kernel
@@ -570,8 +590,15 @@ def phase_fused(device):
         def plain():
             return simple_step_plain(s.u, s.v, s.p, s.ff, c, prof, nu=nu)
 
-        out_k, out_p = kernel(), plain()
+        out_k = kernel()
+        # the plain call timed as it runs once for the check (CUDA events)
         torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out_p = plain()
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
         fields = []  # (err / tol, err, tol) per field and flux array
         for a, b in zip((*out_k[:3], *out_k[3]), (*out_p[:3], *out_p[3])):
             e = check_pair(f"fused_step {label}", a, out_k[5], b, out_p[5], quiet=True)
@@ -583,9 +610,23 @@ def phase_fused(device):
             f"against its tolerance {worst[2]:.3e} (REL_TOL x max|value|); "
             f"counts kernel={out_k[5]} plain={out_p[5]} (equal)")
         k = kw["steps_per_kernel"]
-        reps = 5 if design == "a" or kw["nx"] < 100 else 2
-        ms = cuda_ms(kernel, reps)
-        plain_ms = cuda_ms(plain, 1, warm=False)
+        reps = 5 if design == "a" or kw["nx"] < 100 else 3
+        if design == "b":
+            def staged():
+                return simple_step_kernel(s.u, s.v, s.p, s.ff, c, prof, nu=nu,
+                                          _design="b", _staged=True)
+
+            out_s = staged()
+            torch.cuda.synchronize()
+            checks = []
+            same(checks, f"fused_step {label}, design (b) vs its staged form",
+                 (*out_k[:3], *out_k[3], out_k[4]), out_k[5],
+                 (*out_s[:3], *out_s[3], out_s[4]), out_s[5])
+            # in turns, kernel, staged, staged, kernel: the call is host-bound
+            times = [cuda_ms(fn, reps) for fn in (kernel, staged, staged, kernel)]
+            ms, staged_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        else:
+            ms = cuda_ms(kernel, reps)
         nb, fl = fused_work(c, out_k[5], device)
         b_ms, b_by = bound_ms(nb, fl)
         log(f"  fused_step {label}: kernel {ms:.4f} ms per call ({ms / k:.5f} per step), "
@@ -595,11 +636,28 @@ def phase_fused(device):
         cycles = mg_solve_pressure_kernel.replays
         kernel()
         cycles = mg_solve_pressure_kernel.replays - cycles
-        results.append(dict(gate=label, design=design, steps=k, counts=out_k[5],
-                            vcycles_per_call=cycles,
-                            launches_per_call=launches_per_call(kernel, simple_step_kernel),
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by))
+        gate = dict(gate=label, design=design, steps=k, counts=out_k[5],
+                    vcycles_per_call=cycles,
+                    launches_per_call=launches_per_call(kernel, simple_step_kernel),
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by)
+        if design == "b":
+            reads = simple_step_kernel.reads
+            kernel()
+            reads = simple_step_kernel.reads - reads
+            staged_reads = simple_step_kernel.reads
+            staged()
+            staged_reads = simple_step_kernel.reads - staged_reads
+            staged_launches = launches_per_call(staged, simple_step_kernel)
+            log(f"  fused_step {label}: staged form {staged_ms:.4f} ms per call (in turns "
+                f"with design (b): {', '.join(f'{t:.4f}' for t in times)}), "
+                f"{staged_launches} launches and {staged_reads} momentum host reads (design "
+                f"(b): {gate['launches_per_call']} and {reads})")
+            gate.update(bit_equal_staged=True, staged_ms=staged_ms,
+                        staged_launches_per_call=staged_launches,
+                        momentum_reads_per_call=reads,
+                        staged_momentum_reads_per_call=staged_reads)
+        results.append(gate)
     return results
 
 
@@ -622,61 +680,17 @@ def max_err(pairs):
 
 
 def phase_big_grid_kernels(device):
-    """The big-grid kernels against their plain versions at 2048^2 on the
-    same seeded inputs: a QUICK momentum pass (3 sweeps) and a momentum
-    solve; pass A, the level-1 correction and pass B each alone; one forced
-    streamed V-cycle and a 5-cycle streamed solve."""
+    """The streamed V-cycle's kernels against their plain versions at 2048^2
+    on the same seeded inputs: pass A, the level-1 correction and pass B
+    each alone; one forced streamed V-cycle and a 5-cycle streamed solve.
+    (The big grid's momentum: phase_momentum_kernels.)"""
     import numpy as np
-    import torch
 
-    from sr_for_cfd_tpu_torch.ops import momentum_kernels as mk
     from sr_for_cfd_tpu_torch.ops import stream_kernels as sk
     from sr_for_cfd_tpu_torch.ops.multigrid import frozen_ghost_rhs
-    from sr_for_cfd_tpu_torch.ops.stencil import face_fluxes
 
     n = BIG_N
     rows, gates = {}, []
-
-    def timed(name, kernel, plain, work, reps=5, counter=None):
-        ms = cuda_ms(kernel, reps)
-        plain_ms = cuda_ms(plain, 1)
-        b_ms, b_by = bound_ms(*work)
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.6f} ms ({b_by})")
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    launches_per_call=launches_per_call(kernel, counter))
-
-    # momentum: smooth seeded fields on the 2048^2 cavity's spacing
-    f = smooth_fields(21, n + 2, n + 2, scale=0.3)
-    u, v = (torch.tensor(f[c], dtype=torch.float32, device=device) for c in "uv")
-    old = u[1:-1, 1:-1] + 0.01 * torch.tensor(smooth_fields(22, n, n)["u"],
-                                              dtype=torch.float32, device=device)
-    ff = face_fluxes(u, v, 1.0 / n, 1.0 / n)
-    mkw = dict(scheme="QUICK", dx=1.0 / n, dy=1.0 / n, dt=1e-3, nu=1e-3,
-               volp=1.0 / n**2, check_every=3)
-    # (gate, tol, max_iter): one pass exactly; a solve to a tolerance ten
-    # passes away (the rms falls ~0.7x per pass here, from 7.1e-7; 2.80e-8
-    # after the tenth), far above the float32 floor
-    for gate, tol, max_iter in (("pass k=3", 0.0, 3), ("solve", 3e-8, 60)):
-        kw = dict(mkw, tol=tol, max_iter=max_iter, return_count=True)
-        (out_k, n_k) = mk.tiled_solve_momentum(u, old, ff, slab_rows=256, **kw)
-        kw.pop("return_count")
-        (out_p, n_p) = mk.tiled_solve_momentum_plain(u, old, ff, **kw)
-        err, worst = max_err([(out_k, out_p)])
-        if n_k != n_p:
-            fail(f"tiled momentum {gate}: {n_k} sweeps, plain {n_p}")
-        log(f"  tiled_momentum {gate} {n}^2 QUICK: max_abs_err={err:.3e} "
-            f"({worst:.3f} of its tolerance), sweeps kernel={n_k} plain={n_p}")
-        t = timed(f"tiled_momentum {gate}",
-                  lambda: mk.tiled_solve_momentum(u, old, ff, slab_rows=256, **kw),
-                  lambda: mk.tiled_solve_momentum_plain(u, old, ff, **kw),
-                  momentum_work(n, n, "QUICK", n_k, n_k // 3), reps=3,
-                  counter=mk.tiled_solve_momentum)
-        gates.append(dict(gate=f"tiled_momentum {gate}", sweeps=n_k,
-                          max_abs_err=err, **t))
-        if gate == "pass k=3":
-            rows["tiled_momentum"] = dict(max_abs_err=err, **t)
-    del u, v, old, ff
 
     # the streamed V-cycle on a seeded pressure problem, cavity spacing
     rng = np.random.default_rng(4321)
@@ -737,6 +751,224 @@ def phase_big_grid_kernels(device):
                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by))
     return rows, gates
+
+
+def timed(name, kernel, plain, work, reps=5, counter=None):
+    """ms per call of a kernel's wrapper and of its plain version (CUDA
+    events), its bound, and the launches of one call."""
+    ms = cuda_ms(kernel, reps)
+    plain_ms = cuda_ms(plain, 1)
+    b_ms, b_by = bound_ms(*work)
+    log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                launches_per_call=launches_per_call(kernel, counter))
+
+
+def same(gates, name, out, n_out, ref, n_ref):
+    """Fail unless two forms' outputs are bit-equal with equal counts."""
+    import torch
+
+    bit = all(torch.equal(a, b) for a, b in zip(out, ref)) and n_out == n_ref
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    log(f"  {name}: bit-equal {bit} (max_abs_err {err:.3e}, counts {n_out} / {n_ref})")
+    if not bit:
+        fail(f"{name}: the forms differ")
+    gates.append(dict(gate=name, counts=n_out, bit_equal=True, max_abs_err=0.0))
+
+
+def pass_forms(name, gates, f0, old, ff, nu, k, quick, coef, plain_out, step_prm=None):
+    """One fused pass against the staged form (field and rms bit-equal) and
+    the plain version (REL_TOL); ms of each alone (CUDA events over 100
+    calls): the fused pass's one launch, the staged form's 2k + 1."""
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops import mom_pass
+
+    nx2, ny2 = f0.shape
+    staged = mom_pass.StagedPass(f0, old, ff, nu, k, quick, mom_pass.Coef(*coef), step_prm)
+    ref = f0.clone()
+    staged(ref)
+    torch.cuda.synchronize()
+    err = check_pair(f"{name} fused pass vs plain", ref, k, plain_out, k, quiet=True)
+    one = mom_pass.OnePass(nx2, ny2, f0.device, quick=quick, k=k,
+                           old_padded=step_prm is not None, coef=mom_pass.Coef(*coef))
+    dst = torch.full_like(f0, float("nan"))
+    one(f0, dst, old, ff, nu)
+    torch.cuda.synchronize()
+    same(gates, f"{name} fused pass ({one.plan.n_tiles} blocks, {one.plan.smem} B) vs "
+         f"staged, field and rms", (dst, one.rms), k, (ref, staged.rms), k)
+    alone = cuda_ms(lambda: one(f0, dst, old, ff, nu), 100)
+    work = f0.clone()
+    staged_ms = cuda_ms(lambda: staged(work), 100)
+    alone2 = cuda_ms(lambda: one(f0, dst, old, ff, nu), 100)
+    log(f"  {name}: one pass of {k} sweeps alone: fused {alone:.5f} / {alone2:.5f} ms "
+        f"(1 launch), staged form {staged_ms:.5f} ms ({2 * k + 1} launches); fused vs "
+        f"plain max_abs_err {err:.3e}")
+    return dict(pass_alone_ms=(alone + alone2) / 2, staged_pass_ms=staged_ms, pass_err=err)
+
+
+def phase_momentum_kernels(device):
+    """The fused momentum pass and both device-exit momentum loops.
+    Row 4 at 2048^2 (QUICK, k = 3, the old field interior): one pass on each
+    tile side bit-equal to the staged form and within REL_TOL of the plain
+    version; the wrapper's pass and a 10-pass solve against the plain
+    version and bit-equal to the staged (host-exit) loop, also with the
+    exit by max_iter at every batch position; a k past the fused pass's
+    shared memory (14) on the staged form, against the plain version.
+    Row 3 at 402^2 (the north-star fine grid, UPWIND, k = 1, the old field
+    padded): one pass likewise; the device-exit loop bit-equal to the
+    host-exit loop at every batch position (dt 0.5, where the rms falls
+    ~12% a sweep from 9.8e-4, a new best at each) and on the north-star
+    settings' own solve. Times: each
+    pass alone, the staged pass, the wrapper's one-pass call with its host
+    read against the staged wrapper's; a north-star momentum solve in each
+    loop, with its launches and host reads."""
+    from dataclasses import replace
+
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops import kernel_lib
+    from sr_for_cfd_tpu_torch.ops import momentum_kernels as mk
+    from sr_for_cfd_tpu_torch.ops import step_kernels as stk
+    from sr_for_cfd_tpu_torch.ops.stencil import face_fluxes
+    from sr_for_cfd_tpu_torch.solver.cases import make_bfs_solver
+
+    n = BIG_N
+    gates, rows = [], {}
+    # row 4: smooth seeded fields on the 2048^2 cavity's spacing
+    f = smooth_fields(21, n + 2, n + 2, scale=0.3)
+    u, v = (torch.tensor(f[c], dtype=torch.float32, device=device) for c in "uv")
+    old = u[1:-1, 1:-1] + 0.01 * torch.tensor(smooth_fields(22, n, n)["u"],
+                                              dtype=torch.float32, device=device)
+    ff = face_fluxes(u, v, 1.0 / n, 1.0 / n)
+    mkw = dict(scheme="QUICK", dx=1.0 / n, dy=1.0 / n, dt=1e-3, nu=1e-3,
+               volp=1.0 / n**2, check_every=3)
+    nu = torch.full((1,), 1e-3, dtype=torch.float32, device=device)
+    inv_dx2, inv_dy2, ap_d = mk._coefficients(mkw["dx"], mkw["dy"], mkw["volp"])
+    coef = (mkw["volp"], mkw["volp"] / mkw["dt"], inv_dx2, inv_dy2, ap_d)
+    one = dict(mkw, tol=0.0, max_iter=3)
+    plain, _ = mk.tiled_solve_momentum_plain(u, old, ff, **one)
+    row4 = pass_forms(f"tiled_momentum {n}^2 QUICK", gates, u, old, ff, nu, 3, True, coef,
+                      plain)
+    # (gate, tol, max_iter): one pass exactly; a solve to a tolerance ten
+    # passes away (the rms falls ~0.7x per pass here, from 7.1e-7; 2.80e-8
+    # after the tenth), far above the float32 floor; that solve cut by
+    # max_iter after 1, 2, 5 and 9 passes (every position of a batch of
+    # mk.BATCH passes, and a cap that is not a multiple of 3)
+    cuts = [("max_iter %d" % m, 3e-8, m) for m in (3, 5, 13, 27)]
+    for gate, tol, max_iter in [("pass k=3", 0.0, 3), ("solve", 3e-8, 60)] + cuts:
+        kw = dict(mkw, tol=tol, max_iter=max_iter)
+        out_k, n_k = mk.tiled_solve_momentum(u, old, ff, slab_rows=256, return_count=True,
+                                             **kw)
+        out_s, n_s = mk.tiled_solve_momentum(u, old, ff, slab_rows=256, return_count=True,
+                                             _staged=True, **kw)
+        torch.cuda.synchronize()
+        same(gates, f"tiled_momentum {gate}, device-exit vs host-exit loop",
+             (out_k,), n_k, (out_s,), n_s)
+        if gate.startswith("max_iter"):
+            if n_k != -(-max_iter // 3) * 3:
+                fail(f"tiled momentum {gate}: {n_k} sweeps")
+            continue
+        out_p, n_p = mk.tiled_solve_momentum_plain(u, old, ff, **kw)
+        err, worst = max_err([(out_k, out_p)])
+        if n_k != n_p:
+            fail(f"tiled momentum {gate}: {n_k} sweeps, plain {n_p}")
+        log(f"  tiled_momentum {gate} {n}^2 QUICK: max_abs_err={err:.3e} "
+            f"({worst:.3f} of its tolerance), sweeps kernel={n_k} plain={n_p}")
+        t = timed(f"tiled_momentum {gate}",
+                  lambda: mk.tiled_solve_momentum(u, old, ff, slab_rows=256, **kw),
+                  lambda: mk.tiled_solve_momentum_plain(u, old, ff, **kw),
+                  momentum_work(n, n, "QUICK", n_k, n_k // 3), reps=5,
+                  counter=mk.tiled_solve_momentum)
+        staged_ms = cuda_ms(lambda: mk.tiled_solve_momentum(
+            u, old, ff, slab_rows=256, _staged=True, **kw), 5)
+        reads = mk.tiled_solve_momentum.reads
+        mk.tiled_solve_momentum(u, old, ff, slab_rows=256, **kw)
+        reads = mk.tiled_solve_momentum.reads - reads
+        log(f"  tiled_momentum {gate}: the staged (host-exit) loop {staged_ms:.4f} ms; "
+            f"host reads per call {reads}")
+        gates.append(dict(gate=f"tiled_momentum {gate}", sweeps=n_k, max_abs_err=err,
+                          staged_ms=staged_ms, reads_per_call=reads, **t))
+        if gate == "pass k=3":
+            rows["tiled_momentum"] = dict(max_abs_err=err, staged_call_ms=staged_ms,
+                                          reads_per_call=reads, **row4, **t)
+    del u, v, old, ff
+    # a k past the fused pass's shared memory runs on the staged form
+    f = smooth_fields(23, 66, 66, scale=0.3)
+    us, vs = (torch.tensor(f[c], dtype=torch.float32, device=device) for c in "uv")
+    kw = dict(mkw, dx=1 / 64, dy=1 / 64, volp=1 / 64**2, tol=0.0, max_iter=28,
+              check_every=14)
+    ffs = face_fluxes(us, vs, 1 / 64, 1 / 64)
+    launches = mk.tiled_solve_momentum.launches
+    out_k, n_k = mk.tiled_solve_momentum(us, us[1:-1, 1:-1], ffs, slab_rows=256,
+                                         return_count=True, **kw)
+    launches = mk.tiled_solve_momentum.launches - launches
+    out_p, n_p = mk.tiled_solve_momentum_plain(us, us[1:-1, 1:-1], ffs, **kw)
+    err = check_pair("tiled_momentum k=14 (past the fused budget) 64^2", out_k, n_k,
+                     out_p, n_p)
+    if launches != 2 * 29:
+        fail(f"tiled momentum k=14: {launches} launches, the staged form makes 58")
+    gates.append(dict(gate="tiled_momentum k=14 on the staged form", sweeps=n_k,
+                      max_abs_err=err))
+
+    # row 3: the north-star fine grid (400^2 BFS, UPWIND, k = 1)
+    lib = kernel_lib.load_library()
+    ns = dict(nx=400, ny=400, scheme="UPWIND", dtype="float32", fused_step=True,
+              pressure_solver="multigrid", steps_per_kernel=10, chunk_size=10)
+
+    def staged_for(solver, **settings):
+        c = solver.case
+        c = replace(c, settings=replace(c.settings, **settings))
+        prm = stk.step_params(c, solver.profile is not None)
+        u_in, below = stk._inlet(solver.profile, solver.state.u)
+        nu = stk._nu_tensor(solver._nu, solver.state.u).reshape(1).contiguous()
+        return stk._Staged(lib, c, prm, u_in, below, nu, solver.state.u), prm, nu
+
+    for dt in (2e-3, 0.5):
+        solver = make_bfs_solver(device=device, dt=dt, **ns)
+        solver.warm_start(smooth_fields(31, 400, 400))
+        s = solver.state
+        if dt == 0.5:
+            # the loop against the host-exit loop at every batch position
+            for m in range(1, 2 * stk.BATCH + 2):
+                st, _, _ = staged_for(solver, inner_max_iter=m, inner_tolerance=0.0)
+                out_k, n_k = st.momentum(s.u, s.ff)
+                out_h, n_h = st.momentum_host_exit(s.u, s.ff)
+                same(gates, f"fused-step momentum 402^2 dt 0.5 max_iter {m} (batch "
+                     f"position {(m - 1) % stk.BATCH + 1}), device-exit vs host-exit loop",
+                     (out_k,), n_k, (out_h,), n_h)
+            continue
+        st, prm, nu = staged_for(solver)
+        one_case = replace(solver.case, settings=replace(
+            solver.case.settings, inner_max_iter=1, inner_tolerance=0.0))
+        plain, _ = stk._plain_momentum(s.u, s.ff, one_case, nu[0])
+        coef3 = (prm.volp, prm.volp_dt, prm.inv_dx2, prm.inv_dy2, prm.ap_d)
+        row3 = pass_forms("fused-step momentum 402^2 UPWIND", gates, s.u, s.u, s.ff, nu,
+                          1, False, coef3, plain, step_prm=prm)
+        out_k, n_k = st.momentum(s.u, s.ff)
+        out_h, n_h = st.momentum_host_exit(s.u, s.ff)
+        same(gates, f"fused-step momentum 402^2 north-star solve (tol "
+             f"{solver.case.settings.inner_tolerance:g}), device-exit vs host-exit loop",
+             (out_k,), n_k, (out_h,), n_h)
+        counter = stk.simple_step_kernel
+        before = (counter.launches, counter.reads)
+        st.momentum(s.u, s.ff)
+        fused_lr = (counter.launches - before[0], counter.reads - before[1])
+        before = (counter.launches, counter.reads)
+        st.momentum_host_exit(s.u, s.ff)
+        host_lr = (counter.launches - before[0], counter.reads - before[1])
+        loop_ms = cuda_ms(lambda: st.momentum(s.u, s.ff), 20)
+        host_ms = cuda_ms(lambda: st.momentum_host_exit(s.u, s.ff), 20)
+        log(f"  fused-step momentum 402^2 north-star solve: {n_k} sweeps; device-exit "
+            f"loop {loop_ms:.4f} ms ({fused_lr[0]} launches, {fused_lr[1]} host reads), "
+            f"host-exit loop {host_ms:.4f} ms ({host_lr[0]} launches, {host_lr[1]} reads)")
+        rows["fused_step_momentum"] = dict(solve_sweeps=n_k, loop_ms=loop_ms,
+                                           host_exit_ms=host_ms,
+                                           loop_launches_reads=fused_lr,
+                                           host_exit_launches_reads=host_lr, **row3)
+    rows["momentum_gates"] = gates
+    return rows
 
 
 def plain_streamed_solve(p, ff, geo, cycles):
@@ -987,6 +1219,8 @@ def reset_counters():
         fn.launches = 0
     mg_solve_pressure_kernel.replays = sk.level1_correction.replays = 0
     tiled_solve_pressure.reads = tiled_solve_pressure.sweeps = 0
+    tiled_solve_momentum.reads = tiled_solve_momentum.sweeps = 0
+    simple_step_kernel.reads = simple_step_kernel.calls = 0
     rre_extrapolate.attempts = rre_extrapolate.taken = 0
 
 
@@ -1071,9 +1305,41 @@ def phase_non_fused(device):
     return totals
 
 
+class SolveCounts:
+    """Records the sweeps of every device-exit momentum solve while it is
+    entered (a wrapper around MomentumLoop.solve; no launch of its own)."""
+
+    def __enter__(self):
+        from sr_for_cfd_tpu_torch.ops import mom_pass
+
+        self.counts, self.solve = [], mom_pass.MomentumLoop.solve
+        counts, solve = self.counts, self.solve
+
+        def counted(loop, *a, **k):
+            out = solve(loop, *a, **k)
+            counts.append(out[1])
+            return out
+
+        mom_pass.MomentumLoop.solve = counted
+        return self
+
+    def __exit__(self, *exc):
+        from sr_for_cfd_tpu_torch.ops import mom_pass
+
+        mom_pass.MomentumLoop.solve = self.solve
+
+    def histogram(self):
+        from collections import Counter
+
+        return dict(sorted(Counter(self.counts).items()))
+
+
 def phase_north_star(device):
-    res, totals = run_path("north star", device, (2000, 300, 300), NORTH_STAR,
-                           NORTH_STAR_COARSE)
+    with SolveCounts() as solves:
+        res, totals = run_path("north star", device, (2000, 300, 300), NORTH_STAR,
+                               NORTH_STAR_COARSE)
+    log(f"  north star: momentum sweeps per device-exit solve (fine phases) "
+        f"{solves.histogram()}")
     launches = res["kernel_launches"]
     for phase in ("coarse", "ml", "normal"):
         if launches[phase]["fused_step"] <= 0:
@@ -1083,6 +1349,11 @@ def phase_north_star(device):
             fail(f"the V-cycle kernel did not launch in the {phase} phase")
         if launches[phase]["rre_attempts"] <= 0:
             fail(f"no RRE jump was attempted in the {phase} phase")
+        n = max(1, res[f"{phase}_iterations"])
+        c = launches[phase]
+        log(f"  north star {phase} phase, per fine step: {c['fused_step'] / n:.2f} design "
+            f"(b) launches, {c['fused_step_reads'] / n:.2f} momentum host reads, "
+            f"{c['mg_vcycle_replays'] / n:.2f} V-cycle replays")
     return totals
 
 
@@ -1122,12 +1393,14 @@ def phase_big_grid(device):
 
     tsimple.simple_step = counted_step
     try:
-        reset_counters()
-        iters, elapsed = solver.solve(verbose=False, save_results=False)
-        torch.cuda.synchronize()
-        launches = kernel_launch_counts()
+        with SolveCounts() as solves:
+            reset_counters()
+            iters, elapsed = solver.solve(verbose=False, save_results=False)
+            torch.cuda.synchronize()
+            launches = kernel_launch_counts()
     finally:
         tsimple.simple_step = step
+    log(f"  big-grid cavity: momentum sweeps per device-exit solve {solves.histogram()}")
     if iters != BIG_GRID_STEPS or len(counts) != iters:
         fail(f"big-grid cavity ran {iters} steps, expected {BIG_GRID_STEPS}")
     if not finite_fields(solver):
@@ -1141,7 +1414,8 @@ def phase_big_grid(device):
     log(f"  big-grid cavity {BIG_N}^2 Re=1000 QUICK: {iters} steps in {elapsed:.3f} s, "
         f"{1e3 * elapsed / iters:.3f} ms/iter; mean per step: u sweeps {mean['u']:.2f}, "
         f"v sweeps {mean['v']:.2f}, p cycles {mean['p']:.2f}; launches per step "
-        f"{ {k: round(launches[k] / iters, 2) for k in BIG_GRID_KERNELS} }; "
+        f"{ {k: round(launches[k] / iters, 2) for k in BIG_GRID_KERNELS} }; momentum "
+        f"host reads per step {launches['tiled_momentum_reads'] / iters:.2f}; "
         f"rms {solver.state.rms.tolist()}")
     return {k: v for k, v in launches.items() if not k.startswith("rre")}
 
@@ -1710,6 +1984,7 @@ def main():
     t = time.perf_counter()
     kernels = phase_kernels(device)
     fused = phase_fused(device)
+    mom_rows = phase_momentum_kernels(device)
     big_rows, big_gates = phase_big_grid_kernels(device)
     tiled_row = phase_tiled_kernels(device)
     shard_row = phase_shard_kernels(device)
@@ -1760,14 +2035,19 @@ def main():
              library_ms=None, **launches("fused_step"),
              **{k: fused_main[k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by", "launches_per_call",
-                                           "vcycles_per_call")},
-             gates=fused),
+                                           "vcycles_per_call", "staged_ms",
+                                           "staged_launches_per_call",
+                                           "momentum_reads_per_call",
+                                           "staged_momentum_reads_per_call")},
+             momentum_pass=mom_rows["fused_step_momentum"], gates=fused),
+        # ms: the wrapper's one-pass call with its host read; pass_alone_ms:
+        # the fused pass alone (CUDA events over 100 launches)
         dict(name="tiled_momentum", route="cuda",
-             source="sr_for_cfd_tpu_torch/csrc/tiled_momentum.cu",
+             source="sr_for_cfd_tpu_torch/csrc/mom_pass.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_momentum.py:222",
              library_ms=None, **launches("tiled_momentum"),
-             **big_rows["tiled_momentum"],
-             gates=[g for g in big_gates if g["gate"].startswith("tiled")]),
+             **mom_rows["tiled_momentum"],
+             gates=[g for g in mom_rows["momentum_gates"]]),
         dict(name="stream_pass_a", route="cuda",
              source="sr_for_cfd_tpu_torch/csrc/stream_mg.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_stream.py:168",
@@ -1802,8 +2082,12 @@ def main():
         row["calls"] = row["launches"] / row["launches_per_call"]
         row["lost_s"] = row["calls"] * (row["ms"] - row["bound_ms"]) / 1e3
     # row 3's own time: its call less the V-cycles (row 2's graph replays)
-    # inside it, each at one row 2 cycle's call time from this run
+    # inside it, each at one row 2 cycle's call time from this run; its
+    # calls counted, as a gate call's launches (its solves' no-op launches
+    # included) need not be a main-path call's
     fused_row, mg = rows[2], kernels["400x400"]
+    fused_row["calls"] = sum(c["fused_step_calls"] for c in by_path.values())
+    fused_row["lost_s"] = fused_row["calls"] * (fused_row["ms"] - fused_row["bound_ms"]) / 1e3
     cycle_ms = mg["ms"] / mg["cycles"]
     fused_row["vcycle_call_ms"] = cycle_ms
     fused_row["own_ms"] = fused_row["ms"] - fused_row["vcycles_per_call"] * cycle_ms
@@ -1812,6 +2096,14 @@ def main():
     log(f"  fused_step: {fused_row['vcycles_per_call']} V-cycles per call at {cycle_ms:.5f} "
         f"ms each: own time {fused_row['own_ms']:.5f} of {fused_row['ms']:.5f} ms, own Lost "
         f"{fused_row['own_lost_s']:.4f} s of {fused_row['lost_s']:.4f}")
+    # row 4: its calls are the passes run (a batch after the exit adds
+    # no-op launches); Lost also for the pass alone
+    mom = rows[3]
+    mom["sweeps"] = sum(c["tiled_momentum_sweeps"] for c in by_path.values())
+    mom["host_reads"] = sum(c["tiled_momentum_reads"] for c in by_path.values())
+    mom["calls"] = mom["sweeps"] / 3
+    mom["lost_s"] = mom["calls"] * (mom["ms"] - mom["bound_ms"]) / 1e3
+    mom["alone_lost_s"] = mom["calls"] * (mom["pass_alone_ms"] - mom["bound_ms"]) / 1e3
     # row 5: its calls are the sweeps run (a batch after the exit adds
     # no-op launches); Lost also at the loop's time per sweep
     tiled = rows[7]

@@ -33,6 +33,44 @@ __device__ __forceinline__ float srcfd_fixed_sum(const float* x, int n, float* s
   return srcfd_block_sum(acc, sh);
 }
 
+// NS fixed-order sums of one value per thread at once: for each, the tree
+// of srcfd_block_sum, so each total has its bits. sh holds NS *
+// SRCFD_THREADS floats; every thread of the block must call it.
+template <int NS>
+__device__ __forceinline__ void srcfd_block_sums(float (&v)[NS], float* sh) {
+  const int t = threadIdx.x + threadIdx.y * blockDim.x;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) sh[s * SRCFD_THREADS + t] = v[s];
+  __syncthreads();
+  for (int w = SRCFD_THREADS / 2; w > 0; w >>= 1) {
+    if (t < w) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        sh[s * SRCFD_THREADS + t] += sh[s * SRCFD_THREADS + t + w];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) v[s] = sh[s * SRCFD_THREADS];
+  __syncthreads();
+}
+
+// 4-byte asynchronous copy global -> shared; `in` false zero-fills (no
+// byte is read, src only has to be a valid address)
+__device__ __forceinline__ void srcfd_cp_async4(float* dst, const float* src, bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void srcfd_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void srcfd_cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
 // Launch grid of SRCFD_TX x SRCFD_TY blocks covering a (rows, cols) array,
 // cols contiguous.
 static inline dim3 srcfd_grid(int rows, int cols) {

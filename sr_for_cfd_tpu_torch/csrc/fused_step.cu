@@ -22,15 +22,21 @@
 // the same branches and reach the same barriers. Every loop is bounded by
 // K, max_iter (inner sweeps) or a size.
 //
-// Design (b), one launch per stage, for grids past (a)'s shared memory and
-// for the multigrid pressure mode: srcfd_step_mom_half (one red-black
-// half-sweep, out of place because QUICK reads same-colour cells two away;
-// optional per-block r^2 sums), srcfd_step_relax, srcfd_step_bc,
-// srcfd_step_fluxes, srcfd_step_project (projection, per-block residual
-// sums, Rhie-Chow) and srcfd_step_sums (the residual sums in a fixed
-// order). The host runs the inner loops, reading one rms per check through
-// srcfd_rms_finalize (rb_sor.cu); the pressure stage is rb_sor.cu or
-// mg_vcycle.cu through their wrappers. No block waits on another.
+// Design (b), for grids past (a)'s shared memory and for the multigrid
+// pressure mode: each momentum loop on the fused momentum pass
+// (mom_pass.cu: a check's sweeps and its residual sum in one launch, the
+// loop's exit on the card); srcfd_step_relax_bc (relaxation and the
+// boundary fill of one field in one launch, out of place),
+// srcfd_step_fluxes, the pressure stage (rb_sor.cu or mg_vcycle.cu through
+// their wrappers) and srcfd_step_project_bc (projection, Rhie-Chow, the
+// three residual sums and the ring fills of u and v in one launch: its
+// last block, behind a ticket, sums and fills). Five launches a step
+// besides the loops. The staged form (the card gates' bit-equality
+// reference) keeps a launch per stage: srcfd_step_mom_half (one red-black
+// half-sweep, out of place because QUICK reads same-colour cells two
+// away; optional per-block r^2 sums) with srcfd_rms_finalize (rb_sor.cu)
+// and a host read per check, srcfd_step_relax, srcfd_step_bc,
+// srcfd_step_project and srcfd_step_sums. No block waits on another.
 //
 // Arithmetic follows the TPU kernel operation by operation (the library is
 // built with -fmad=false, so no multiply-add is contracted): the momentum
@@ -76,14 +82,26 @@ __device__ __forceinline__ int ring_cells(const StepParams& c) {
   return 2 * (c.nx2 - 2) + 2 * (c.ny2 - 2);
 }
 
+// the ghost value of ring side `side` (0 left i=0, 1 right i=nx+1, 2 top
+// j=ny+1, 3 bottom j=0) of variable var (0 u, 1 v, 2 p) from its inside
+// neighbour `in`; j is the ghost's column on the left side
+__device__ __forceinline__ float bc_value(float in, int side, int j, int var,
+                                          const StepParams& c,
+                                          const float* __restrict__ u_in,
+                                          const float* __restrict__ below) {
+  float g = c.bc_type[var * 4 + side] == 0 ? c.bc_twice[var * 4 + side] - in : in;
+  if (side == 0 && c.bfs && var < 2)
+    g = (var == 1 || below[j] > 0.5f) ? -in : 2.0f * u_in[j] - in;
+  return g;
+}
+
 // ghost k of the ring (left j=1..ny, right, top i=1..nx, bottom; corners
-// untouched) of variable var (0 u, 1 v, 2 p), from the interior only
-__device__ __forceinline__ void bc_cell(float* __restrict__ f, int k, int var,
-                                        const StepParams& c,
-                                        const float* __restrict__ u_in,
-                                        const float* __restrict__ below) {
+// untouched): its side, its index, its inside neighbour's index and, on
+// the left, its column
+__device__ __forceinline__ void ring_cell(int k, const StepParams& c, int& side,
+                                          int& ghost, int& inside, int& j) {
   const int nx = c.nx2 - 2, ny = c.ny2 - 2, ny2 = c.ny2;
-  int side, ghost, inside, j = 0;
+  j = 0;
   if (k < ny) {
     side = 0;
     j = k + 1;
@@ -105,11 +123,19 @@ __device__ __forceinline__ void bc_cell(float* __restrict__ f, int k, int var,
     ghost = i * ny2;
     inside = i * ny2 + 1;
   }
-  const float in = f[inside];
-  float g = c.bc_type[var * 4 + side] == 0 ? c.bc_twice[var * 4 + side] - in : in;
-  if (side == 0 && c.bfs && var < 2)
-    g = (var == 1 || below[j] > 0.5f) ? -in : 2.0f * u_in[j] - in;
-  f[ghost] = g;
+}
+
+// ghost k of the ring of variable var, from the interior only; kCg reads
+// the inside cell through L2 (cells another block of the launch wrote)
+template <bool kCg = false>
+__device__ __forceinline__ void bc_cell(float* __restrict__ f, int k, int var,
+                                        const StepParams& c,
+                                        const float* __restrict__ u_in,
+                                        const float* __restrict__ below) {
+  int side, ghost, inside, j;
+  ring_cell(k, c, side, ghost, inside, j);
+  const float in = kCg ? __ldcg(f + inside) : f[inside];
+  f[ghost] = bc_value(in, side, j, var, c, u_in, below);
 }
 
 __device__ __forceinline__ void stall_step(float now, const StepParams& c,
@@ -392,15 +418,14 @@ step_fluxes_kernel(const float* __restrict__ u, const float* __restrict__ v,
 }
 
 // projection of u, v (in place), per-block sums of (u-u0)^2, (v-v0)^2,
-// (p-p0)^2 into partials[0|nb|2nb + block], Rhie-Chow on the fluxes
-__global__ void __launch_bounds__(SRCFD_THREADS)
-step_project_kernel(float* __restrict__ u, float* __restrict__ v,
-                    const float* __restrict__ p, const float* __restrict__ u0,
-                    const float* __restrict__ v0, const float* __restrict__ p0,
-                    float* __restrict__ fe, float* __restrict__ fn,
-                    float* __restrict__ fw, float* __restrict__ fs, StepParams c,
-                    float* __restrict__ partials) {
-  __shared__ float sh[SRCFD_THREADS];
+// (p-p0)^2 into partials[0|nb|2nb + block], Rhie-Chow on the fluxes: the
+// body of step_project_kernel, on srcfd_grid(nx2 - 2, ny2 - 2)
+__device__ __forceinline__ void project_cells(
+    float* __restrict__ u, float* __restrict__ v, const float* __restrict__ p,
+    const float* __restrict__ u0, const float* __restrict__ v0,
+    const float* __restrict__ p0, float* __restrict__ fe, float* __restrict__ fn,
+    float* __restrict__ fw, float* __restrict__ fs, const StepParams& c,
+    float* __restrict__ partials, float* sh) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x + 1;
   const int i = blockIdx.y * blockDim.y + threadIdx.y + 1;
   const int nx = c.nx2 - 2, ny = c.ny2 - 2, ny2 = c.ny2;
@@ -434,6 +459,17 @@ step_project_kernel(float* __restrict__ u, float* __restrict__ v,
   }
 }
 
+__global__ void __launch_bounds__(SRCFD_THREADS)
+step_project_kernel(float* __restrict__ u, float* __restrict__ v,
+                    const float* __restrict__ p, const float* __restrict__ u0,
+                    const float* __restrict__ v0, const float* __restrict__ p0,
+                    float* __restrict__ fe, float* __restrict__ fn,
+                    float* __restrict__ fw, float* __restrict__ fs, StepParams c,
+                    float* __restrict__ partials) {
+  __shared__ float sh[SRCFD_THREADS];
+  project_cells(u, v, p, u0, v0, p0, fe, fn, fw, fs, c, partials, sh);
+}
+
 // res[q] = sum of partials[q * n .. q * n + n), q = 0..2, in a fixed order
 __global__ void __launch_bounds__(SRCFD_THREADS)
 step_sums_kernel(const float* __restrict__ partials, int n, float* __restrict__ res) {
@@ -444,6 +480,99 @@ step_sums_kernel(const float* __restrict__ partials, int n, float* __restrict__ 
     const float s = srcfd_block_sum(acc, sh);
     if (threadIdx.x == 0) res[q] = s;
   }
+}
+
+// ---- design (b)'s folded stages ------------------------------------------
+
+// relaxation and its boundary fill in one launch, out of place: dst = src
+// relaxed towards f0 (f0 + alpha (src - f0) on the interior where `relax`,
+// else src) with the ring filled from the relaxed inside cells, each
+// recomputed by the ghost's thread from the same operands (so no cell is
+// read after another thread writes it), and the corners copied. Bit-equal
+// to step_relax_kernel then step_bc_kernel in place. Launch on
+// srcfd_grid(nx2, ny2).
+__device__ __forceinline__ float relaxed(const float* __restrict__ src,
+                                         const float* __restrict__ f0, int idx,
+                                         float alpha, int relax) {
+  return relax ? f0[idx] + alpha * (src[idx] - f0[idx]) : src[idx];
+}
+
+__global__ void __launch_bounds__(SRCFD_THREADS)
+step_relax_bc_kernel(const float* __restrict__ src, const float* __restrict__ f0,
+                     float* __restrict__ dst, float alpha, int relax, int var,
+                     StepParams c, const float* __restrict__ u_in,
+                     const float* __restrict__ below) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int nx = c.nx2 - 2, ny = c.ny2 - 2, ny2 = c.ny2;
+  if (i > nx + 1 || j > ny + 1) return;
+  const int idx = i * ny2 + j;
+  const bool row_in = i >= 1 && i <= nx, col_in = j >= 1 && j <= ny;
+  if (row_in && col_in) {
+    dst[idx] = relaxed(src, f0, idx, alpha, relax);
+    return;
+  }
+  int side, inside;
+  if (i == 0 && col_in) {
+    side = 0;
+    inside = ny2 + j;
+  } else if (i == nx + 1 && col_in) {
+    side = 1;
+    inside = nx * ny2 + j;
+  } else if (j == ny + 1 && row_in) {
+    side = 2;
+    inside = i * ny2 + ny;
+  } else if (j == 0 && row_in) {
+    side = 3;
+    inside = i * ny2 + 1;
+  } else {  // a corner
+    dst[idx] = src[idx];
+    return;
+  }
+  dst[idx] = bc_value(relaxed(src, f0, inside, alpha, relax), side, j, var, c, u_in,
+                      below);
+}
+
+// projection, the three residual sums and the ring fills of u and v in one
+// launch: step_project_kernel's blocks, then the last block to finish (a
+// __threadfence() and an atomicAdd ticket, reset for the next launch) sums
+// the partials in step_sums_kernel's order into res and fills the rings of
+// u and v (step_bc_kernel's cells, the inside cells read through L2). No
+// block waits on another. Bit-equal to step_project_kernel,
+// step_sums_kernel and two step_bc_kernel launches.
+__global__ void __launch_bounds__(SRCFD_THREADS)
+step_project_bc_kernel(float* __restrict__ u, float* __restrict__ v,
+                       const float* __restrict__ p, const float* __restrict__ u0,
+                       const float* __restrict__ v0, const float* __restrict__ p0,
+                       float* __restrict__ fe, float* __restrict__ fn,
+                       float* __restrict__ fw, float* __restrict__ fs, StepParams c,
+                       float* __restrict__ partials, unsigned* __restrict__ ticket,
+                       float* __restrict__ res, const float* __restrict__ u_in,
+                       const float* __restrict__ below) {
+  __shared__ float sh[SRCFD_THREADS];
+  __shared__ int s_last;
+  project_cells(u, v, p, u0, v0, p0, fe, fn, fw, fs, c, partials, sh);
+  const int t = threadIdx.x + threadIdx.y * blockDim.x;
+  const int nb = gridDim.x * gridDim.y;
+  if (t == 0) {
+    __threadfence();
+    s_last = atomicAdd(ticket, 1u) == (unsigned)nb - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int q = 0; q < 3; ++q) {
+    float acc = 0.0f;
+    for (int k = t; k < nb; k += SRCFD_THREADS) acc += __ldcg(partials + q * nb + k);
+    const float s = srcfd_block_sum(acc, sh);
+    if (t == 0) res[q] = s;
+  }
+  const int n = ring_cells(c);
+  for (int k = t; k < n; k += SRCFD_THREADS) {
+    bc_cell<true>(u, k, 0, c, u_in, below);
+    bc_cell<true>(v, k, 1, c, u_in, below);
+  }
+  if (t == 0) *ticket = 0u;
 }
 
 static size_t small_smem_bytes(int nx2, int ny2) {
@@ -533,6 +662,26 @@ int srcfd_step_project(float* u, float* v, const float* p, const float* u0,
   step_project_kernel<<<srcfd_grid(c->nx2 - 2, c->ny2 - 2), dim3(SRCFD_TX, SRCFD_TY),
                         0, (cudaStream_t)stream>>>(u, v, p, u0, v0, p0, fe, fn,
                                                    fw, fs, *c, partials);
+  return (int)cudaGetLastError();
+}
+
+int srcfd_step_relax_bc(const float* src, const float* f0, float* dst, float alpha,
+                        int relax, int var, const float* u_in, const float* below,
+                        const StepParams* c, void* stream) {
+  step_relax_bc_kernel<<<srcfd_grid(c->nx2, c->ny2), dim3(SRCFD_TX, SRCFD_TY), 0,
+                         (cudaStream_t)stream>>>(src, f0, dst, alpha, relax, var, *c,
+                                                 u_in, below);
+  return (int)cudaGetLastError();
+}
+
+int srcfd_step_project_bc(float* u, float* v, const float* p, const float* u0,
+                          const float* v0, const float* p0, float* fe, float* fn,
+                          float* fw, float* fs, float* partials, unsigned* ticket,
+                          float* res, const float* u_in, const float* below,
+                          const StepParams* c, void* stream) {
+  step_project_bc_kernel<<<srcfd_grid(c->nx2 - 2, c->ny2 - 2),
+                           dim3(SRCFD_TX, SRCFD_TY), 0, (cudaStream_t)stream>>>(
+      u, v, p, u0, v0, p0, fe, fn, fw, fs, *c, partials, ticket, res, u_in, below);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,7 @@
-// The red-black momentum half-sweep, shared by the fused step
-// (fused_step.cu) and the tiled momentum loop (tiled_momentum.cu). It follows the TPU kernels' arithmetic operation by
+// The red-black momentum residual, shared by the fused step (fused_step.cu),
+// the fused momentum pass (mom_pass.cu) and the half-sweep kernel below,
+// which is the staged form of both momentum loops (tiled_momentum.cu,
+// fused_step.cu). It follows the TPU kernels' arithmetic operation by
 // operation (pallas_step.py make_step_kernel, pallas_momentum.py
 // _sweep_kernel): Laplacian times 1/dx^2 and 1/dy^2, QUICK's +-2
 // neighbours clamped at the first and last interior lines.
@@ -9,28 +11,26 @@
 
 #include "common.cuh"
 
-// r = -(volp/dt (f - f0) + Fc - nu Fd) at padded (i, j) of a padded field
-// f (ny2 contiguous), with f0v the old value of the cell and the fluxes at
-// fidx; *ap_out = volp/dt + ap_c - nu ap_d. P holds nx2, ny2, quick, volp,
+// r = -(volp/dt (f - f0) + Fc - nu Fd) at padded (i, j), f[idx] being
+// that cell in an array of row stride `stride` (the padded field, or a
+// tile of it in shared memory), with f0v the old value of the cell and its
+// four face fluxes; *ap_out = volp/dt + ap_c - nu ap_d. (i, j) only decide
+// where QUICK's far neighbours are clamped. P holds nx2, ny2, quick, volp,
 // volp_dt, inv_dx2, inv_dy2 and ap_d.
 template <class P>
-__device__ __forceinline__ float srcfd_mom_residual(
-    const float* f, float f0v, const float* __restrict__ fe_a,
-    const float* __restrict__ fn_a, const float* __restrict__ fw_a,
-    const float* __restrict__ fs_a, int i, int j, int fidx, float nu,
-    const P& c, float* ap_out) {
-  const int ny2 = c.ny2, nx = c.nx2 - 2, ny = c.ny2 - 2;
-  const int idx = i * ny2 + j;
+__device__ __forceinline__ float srcfd_mom_residual_at(
+    const float* f, int idx, int stride, float f0v, float fe, float fn,
+    float fw, float fs, int i, int j, float nu, const P& c, float* ap_out) {
+  const int nx = c.nx2 - 2, ny = c.ny2 - 2;
   const float F = f[idx];
-  const float e = f[idx + ny2], w = f[idx - ny2];
+  const float e = f[idx + stride], w = f[idx - stride];
   const float n = f[idx + 1], s = f[idx - 1];
-  const float fe = fe_a[fidx], fn = fn_a[fidx], fw = fw_a[fidx], fs = fs_a[fidx];
   const bool pe = fe >= 0.0f, pw = fw >= 0.0f, pn = fn >= 0.0f, ps = fs >= 0.0f;
   float ue, uw, un, us, sum_flux;
   if (c.quick) {
     // far neighbours clamped at the first and last interior lines
-    const float ee = i == nx ? e : f[idx + 2 * ny2];
-    const float ww = i == 1 ? w : f[idx - 2 * ny2];
+    const float ee = i == nx ? e : f[idx + 2 * stride];
+    const float ww = i == 1 ? w : f[idx - 2 * stride];
     const float nn = j == ny ? n : f[idx + 2];
     const float ss = j == 1 ? s : f[idx - 2];
     ue = pe ? (0.75f * F + 0.375f * e) - 0.125f * w
@@ -58,6 +58,18 @@ __device__ __forceinline__ float srcfd_mom_residual(
                              ((n - 2.0f * F) + s) * c.inv_dy2);
   *ap_out = (c.volp_dt + ap_c) - nu * c.ap_d;
   return -((c.volp_dt * (F - f0v) + fc) - nu * fd);
+}
+
+// The same at padded (i, j) of a padded field f (ny2 contiguous), the
+// fluxes at fidx.
+template <class P>
+__device__ __forceinline__ float srcfd_mom_residual(
+    const float* f, float f0v, const float* __restrict__ fe_a,
+    const float* __restrict__ fn_a, const float* __restrict__ fw_a,
+    const float* __restrict__ fs_a, int i, int j, int fidx, float nu,
+    const P& c, float* ap_out) {
+  return srcfd_mom_residual_at(f, i * c.ny2 + j, c.ny2, f0v, fe_a[fidx], fn_a[fidx],
+                               fw_a[fidx], fs_a[fidx], i, j, nu, c, ap_out);
 }
 
 // One red-black half-sweep of colour `color` ((i + j) % 2 in padded

@@ -3,7 +3,8 @@
 // rb_sor.cu (the in-place half-sweeps and the single-block loop) and
 // shard_rb.cu (the tiled red-black kernel of the tiled and the
 // row-decomposed solvers) call the same expressions, so they cannot drift
-// apart.
+// apart. The loop state of a device-exit loop and its step are shared with
+// mom_pass.cu (the fused momentum pass).
 #pragma once
 
 #include <math.h>
@@ -60,4 +61,40 @@ __device__ __forceinline__ void stall_update(float now, float rms, float& best,
 __device__ __forceinline__ bool stalled(int stale, int checks,
                                         const StallPolicy& sp) {
   return stale >= sp.patience && checks >= sp.min_checks;
+}
+
+// The state of a loop whose exit is decided on the card (the tiled
+// pressure loop, shard_rb.cu; the momentum loops, mom_pass.cu). The host
+// reads it as 8 int32, rms and best as float32 bits
+// (ops/exit_loop.py: ExitState).
+struct TiledState {
+  float rms, best;
+  int stale, checks, it, done, pad0, pad1;
+};
+
+// The last block's step of the loop state after a check whose rms is `now`
+// (ops/exit_loop.py: exit_state_step is its plain twin): the stall policy,
+// `it` advanced by the sweeps of one launch, then `done` where the host
+// loop's condition fails (NaN exits): it < max_iter, the tested value >=
+// tol (the rms, or with on_best the best rms, as the fused step's momentum
+// loop tests, pallas_step.py:247-252), and no stall. Thread 0 of the last
+// block only.
+__device__ __forceinline__ void loop_state_step(TiledState* st, float now, float tol,
+                                                int max_iter, int per_launch,
+                                                int on_best, const StallPolicy& sp) {
+  const volatile TiledState* vs = st;
+  TiledState s;
+  s.rms = vs->rms;
+  s.best = vs->best;
+  s.stale = vs->stale;
+  s.checks = vs->checks;
+  s.it = vs->it;
+  s.pad0 = s.pad1 = 0;
+  stall_update(now, s.rms, s.best, s.stale, sp);
+  s.rms = now;
+  s.checks += 1;
+  s.it += per_launch;
+  const float tested = on_best ? s.best : s.rms;
+  s.done = !(s.it < max_iter && tested >= tol && !stalled(s.stale, s.checks, sp));
+  *st = s;
 }

@@ -235,13 +235,6 @@ static int shard_rb_launch(const float* f_in, float* f_out, const float* b,
 #define SHARD_RB_SMEM_BUDGET (220 * 1024)
 #define SUM_TILE 32  // the partial sums' tiles: TILE, as in the one-sweep form
 
-// the tiled solver's loop state on the card (ops/tiled_kernels.py reads it
-// as 8 int32: rms and best as float32 bits)
-struct TiledState {
-  float rms, best;
-  int stale, checks, it, done, pad0, pad1;
-};
-
 // the wrapper's plan and constants, one block per call site; the wrapper
 // keeps the partials, ticket and state alive as long as the block
 // (ops/shard_rb.py: Params mirrors this layout; srcfd_shard_rb_params_size
@@ -274,22 +267,6 @@ struct FusedArgs {
   float tol, n_cells;
 };
 
-// 4-byte asynchronous copy global -> shared; `in` false zero-fills (no
-// byte is read, src only has to be a valid address)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
 // tile q of the launch: (tile row, tile column) in OT-sized tiles of the
 // inner cells
 __device__ __forceinline__ void tile_origin(const FusedArgs& a, int q, int& ta,
@@ -315,31 +292,10 @@ __device__ void load_tile(const FusedArgs& a, float* s_f, int q) {
     const int k = k0 + li, j = j0 + lj;
     const bool in = k >= 0 && k < a.g.R && j >= 0 && j < a.g.W;
     const size_t at = in ? (size_t)k * a.g.W + j : 0;
-    cp_async4(s_f + i, a.f_in + at, in);
-    if (li >= 1 && li < L - 1 && lj >= 1 && lj < L - 1) cp_async4(s_b + i, a.b + at, in);
+    srcfd_cp_async4(s_f + i, a.f_in + at, in);
+    if (li >= 1 && li < L - 1 && lj >= 1 && lj < L - 1) srcfd_cp_async4(s_b + i, a.b + at, in);
   }
-  cp_async_commit();
-}
-
-// fixed-order sums of NS values per thread at once: for each, the tree of
-// srcfd_block_sum (so each total has its bits)
-template <int NS>
-__device__ __forceinline__ void block_sums(float (&v)[NS], float* sh) {
-  const int t = threadIdx.x + threadIdx.y * SRCFD_TX;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) sh[s * SRCFD_THREADS + t] = v[s];
-  __syncthreads();
-  for (int w = SRCFD_THREADS / 2; w > 0; w >>= 1) {
-    if (t < w) {
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-        sh[s * SRCFD_THREADS + t] += sh[s * SRCFD_THREADS + t + w];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int s = 0; s < NS; ++s) v[s] = sh[s * SRCFD_THREADS];
-  __syncthreads();
+  srcfd_cp_async_commit();
 }
 
 // kb sweeps of tile q in shared memory, the own rows out, the partials
@@ -415,7 +371,7 @@ __device__ void tile_work(const FusedArgs& a, float* s_f, float* s_t, float* sh,
       v[sy * M + sx] = acc;
     }
   }
-  block_sums<M * M>(v, sh);
+  srcfd_block_sums<M * M>(v, sh);
   if (tx == 0 && ty == 0) {
 #pragma unroll
     for (int sy = 0; sy < M; ++sy) {
@@ -451,7 +407,7 @@ shard_rb_fused_kernel(FusedArgs a) {
   for (int q = blockIdx.x; q < a.n_tiles; q += gridDim.x) {
     load_tile<OT, KB>(a, smem, q);
     for (int i = t; i < OT * OT; i += SRCFD_THREADS) s_t[i] = 0.0f;
-    cp_async_wait();
+    srcfd_cp_async_wait();
     __syncthreads();
     tile_work<OT, KB>(a, smem, s_t, sh, q, klo, khi, ioff);
     __syncthreads();
@@ -473,26 +429,9 @@ shard_rb_fused_kernel(FusedArgs a) {
   if (t != 0) return;
   *a.ticket = 0u;
   if (a.ss_out != nullptr) a.ss_out[0] = total;
-  if (a.st != nullptr) {
-    // rms as rb_sor.cu's srcfd_rms_finalize; the stall policy as
-    // rb_sor_loop_small_kernel; done mirrors the host loop's condition
-    // (NaN exits)
-    const volatile TiledState* vs = a.st;
-    TiledState s;
-    s.rms = vs->rms;
-    s.best = vs->best;
-    s.stale = vs->stale;
-    s.checks = vs->checks;
-    s.it = vs->it;
-    s.pad0 = s.pad1 = 0;
-    const float now = sqrtf(total / a.n_cells);
-    stall_update(now, s.rms, s.best, s.stale, a.sp);
-    s.rms = now;
-    s.checks += 1;
-    s.it += 1;
-    s.done = !(s.it < a.max_iter && s.rms >= a.tol && !stalled(s.stale, s.checks, a.sp));
-    *a.st = s;
-  }
+  // rms as rb_sor.cu's srcfd_rms_finalize, one sweep per check
+  if (a.st != nullptr)
+    loop_state_step(a.st, sqrtf(total / a.n_cells), a.tol, a.max_iter, 1, 0, a.sp);
 }
 
 typedef void (*FusedKernel)(FusedArgs);

@@ -1,4 +1,9 @@
-// Red-black momentum loop for any grid size, one launch per half-sweep.
+// Red-black momentum loop for any grid size, one launch per half-sweep: the
+// staged form of the big-grid momentum loop. The loop itself runs on the
+// fused momentum pass (mom_pass.cu: k sweeps and the residual sum in one
+// launch, the exit on the card); this entry runs a k past that pass's
+// shared memory and is the reference the card gates hold it against, bit
+// for bit.
 //
 // Replaces the TPU kernel sr_for_cfd_tpu/ops/pallas_momentum.py:222
 // (tiled_solve_momentum; kernel body _sweep_kernel :73, pallas_call :298),

@@ -65,6 +65,11 @@ SIGNATURES = {
     "srcfd_step_fluxes": (_I, [_P] * 8),
     "srcfd_step_project": (_I, [_P] * 13),
     "srcfd_step_sums": (_I, [_P, _I, _P, _P]),
+    "srcfd_step_relax_bc": (_I, [_P, _P, _P, _F, _I, _I, _P, _P, _P, _P]),
+    "srcfd_step_project_bc": (_I, [_P] * 17),
+    "srcfd_mom_pass_params_size": (_I, []),
+    "srcfd_mom_pass_init": (_I, []),
+    "srcfd_mom_pass": (_I, [_P] * 11),
     "srcfd_tm_half": (_I, [_P] * 8 + [_I, _I, _I, _F, _F, _F, _F, _F, _I,
                                       _P, _P]),
     "srcfd_sm_entry_half": (_I, [_P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P]),
@@ -160,8 +165,9 @@ def build(force: bool = False, verbose: bool = False) -> float:
 
 def load_library() -> ctypes.CDLL:
     """The kernel library, built if needed, with argtypes set and the
-    dynamic shared memory of the V-cycle tail and of the tiled red-black
-    kernel's fused form allowed (before any launch or graph capture)."""
+    dynamic shared memory of the V-cycle tail, of the tiled red-black
+    kernel's fused form and of the fused momentum pass allowed (before any
+    launch or graph capture)."""
     global _lib
     with _lock:
         if _lib is None:
@@ -173,13 +179,15 @@ def load_library() -> ctypes.CDLL:
                 fn.argtypes = argtypes
             check(lib.srcfd_mg_tail_init(), "mg_tail_init")
             check(lib.srcfd_shard_rb_init(), "shard_rb_init")
-            from .shard_rb import Params
+            check(lib.srcfd_mom_pass_init(), "mom_pass_init")
+            from . import mom_pass, shard_rb
 
-            if lib.srcfd_shard_rb_params_size() != ctypes.sizeof(Params):
-                raise RuntimeError(
-                    f"ops/shard_rb.py's Params ({ctypes.sizeof(Params)} bytes) does "
-                    f"not match csrc/shard_rb.cu's ShardRbParams "
-                    f"({lib.srcfd_shard_rb_params_size()} bytes)")
+            for mod, struct, size in ((shard_rb, "ShardRbParams", lib.srcfd_shard_rb_params_size),
+                                      (mom_pass, "MomPassParams", lib.srcfd_mom_pass_params_size)):
+                if size() != ctypes.sizeof(mod.Params):
+                    raise RuntimeError(
+                        f"{mod.__name__}'s Params ({ctypes.sizeof(mod.Params)} bytes) "
+                        f"does not match the C struct {struct} ({size()} bytes)")
             _lib = lib
         return _lib
 

@@ -6,7 +6,19 @@
 and the unified stall policy counted in passes. The loop exits as the TPU
 loop does: `it < max_iter and rms >= tol and not stalled(stale, passes)`,
 with `it` advancing by `check_every`, so the sweep count is a multiple of
-it. The CUDA source is `csrc/tiled_momentum.cu`.
+it.
+
+On the card each pass is one launch of the fused momentum pass
+(`csrc/mom_pass.cu`, host side `ops/mom_pass.py`): the k sweeps and the
+last sweep's residual sum from shared memory, the exit decided by the
+launch's last block in a device state (`ops/exit_loop.py`). The host
+enqueues one pass and reads the state behind it (BATCH = 1, not ahead):
+97% of the 2048^2 big-grid cavity's solves run one pass (PERF.md), so a
+larger batch would add a no-op launch to nearly every solve to save a read
+in a few. A k past the fused pass's shared memory (`mom_pass.fits`) runs
+on the staged form (`_solve_host_exit`: one `csrc/tiled_momentum.cu`
+launch per half-sweep, `srcfd_rms_finalize` and a host read per pass),
+which the card gates also hold the fused loop against, bit for bit.
 
 The slab height does not change what the port computes (the H100 has no
 VMEM wall, so the kernel has no slabs), but it decides which settings the
@@ -19,7 +31,9 @@ packages accept the same configurations.
 kernel's arithmetic: Laplacian times 1/dx^2 and 1/dy^2, the update r / ap,
 QUICK's +-2 neighbours clamped at the first and last interior lines. On a
 CPU tensor the wrapper runs it; on a CUDA tensor it launches the kernel or
-raises. `tiled_solve_momentum.launches` counts kernel launches.
+raises. `tiled_solve_momentum.launches` counts kernel launches (no-op ones
+included), `.reads` host reads of the loop's rms or state, `.sweeps` the
+sweeps run on the card.
 """
 
 from __future__ import annotations
@@ -30,7 +44,7 @@ import numpy as np
 import torch
 
 from ..config import QUICK
-from . import kernel_lib
+from . import kernel_lib, mom_pass
 from .mg_kernels import launch
 from .stencil import (
     FaceFluxes,
@@ -80,15 +94,12 @@ def _coefficients(dx, dy, volp):
     return inv_dx2, inv_dy2, -volp * (2.0 * inv_dx2 + 2.0 * inv_dy2)
 
 
-def tiled_solve_momentum_plain(
-    phi: torch.Tensor, phi_old_int: torch.Tensor, ff: FaceFluxes, *,
-    scheme: str, dx: float, dy: float, dt: float, nu, volp: float,
-    tol: float = 1e-6, max_iter: int = 1000, check_every: int = 1,
-) -> Tuple[torch.Tensor, int]:
-    """The kernel's loop in plain PyTorch; returns (phi, sweeps_run)."""
-    nx, ny = phi.shape[0] - 2, phi.shape[1] - 2
+def momentum_residual_fn(phi_old_int: torch.Tensor, ff: FaceFluxes, *, scheme: str,
+                         dx: float, dy: float, dt: float, nu, volp: float):
+    """The kernel's residual in plain PyTorch: f -> (r, ap) on the interior
+    of a padded field f."""
     inv_dx2, inv_dy2, ap_d = _coefficients(dx, dy, volp)
-    nu = torch.as_tensor(nu, dtype=phi.dtype, device=phi.device)
+    nu = torch.as_tensor(nu, dtype=phi_old_int.dtype, device=phi_old_int.device)
     quick = scheme == QUICK
     signs = flux_signs(ff)
     flux = quick_flux if quick else upwind_flux
@@ -99,12 +110,46 @@ def tiled_solve_momentum_plain(
         fd = volp * ((e - 2.0 * c + w) * inv_dx2 + (n - 2.0 * c + s) * inv_dy2)
         return -(volp / dt * (c - phi_old_int) + flux(f, ff, signs) - nu * fd), ap
 
+    return residual
+
+
+def tiled_solve_momentum_plain(
+    phi: torch.Tensor, phi_old_int: torch.Tensor, ff: FaceFluxes, *,
+    scheme: str, dx: float, dy: float, dt: float, nu, volp: float,
+    tol: float = 1e-6, max_iter: int = 1000, check_every: int = 1,
+) -> Tuple[torch.Tensor, int]:
+    """The kernel's loop in plain PyTorch; returns (phi, sweeps_run)."""
+    nx, ny = phi.shape[0] - 2, phi.shape[1] - 2
+    residual = momentum_residual_fn(phi_old_int, ff, scheme=scheme, dx=dx, dy=dy,
+                                    dt=dt, nu=nu, volp=volp)
     return sweep_loop(phi, residual, nx, ny, tol, max_iter,
                       check_every=max(1, check_every))
 
 
+# passes enqueued per host read of the loop state (not ahead)
+BATCH = 1
+
+
 def _solve_on_card(phi, old, ff, quick, dx, dy, dt, nu, volp, tol, max_iter,
                    k_sweeps):
+    if not mom_pass.fits(k_sweeps, quick):
+        return _solve_host_exit(phi, old, ff, quick, dx, dy, dt, nu, volp, tol,
+                                max_iter, k_sweeps)
+    nx2, ny2 = phi.shape
+    inv_dx2, inv_dy2, ap_d = _coefficients(dx, dy, volp)
+    coef = mom_pass.Coef(volp, volp / dt, inv_dx2, inv_dy2, ap_d)
+    loop = mom_pass.cached_loop(nx2, ny2, str(phi.device), bool(quick), k_sweeps, False,
+                                coef, float(tol), int(max_iter), False, BATCH, False,
+                                tiled_solve_momentum)
+    out, it = loop.solve(phi, old, ff, nu)
+    tiled_solve_momentum.sweeps += it
+    return (out if it else phi.clone()), it
+
+
+def _solve_host_exit(phi, old, ff, quick, dx, dy, dt, nu, volp, tol, max_iter,
+                     k_sweeps):
+    """The staged form: per pass 2k half-sweep launches, a finalize and a
+    host read, the exit decided on the host in numpy float32."""
     lib = kernel_lib.load_library()
     stream = kernel_lib.stream_ptr(phi.device)
     count = tiled_solve_momentum
@@ -136,11 +181,13 @@ def _solve_on_card(phi, old, ff, quick, dx, dy, dt, nu, volp, tol, max_iter,
         launch(count, lib.srcfd_rms_finalize(
             red, 2 * n_part, n_cells, rms_dev.data_ptr(), stream),
             "rms_finalize")
+        count.reads += 1
         now = t(rms_dev.item())
         stale, best = stall_update(now, rms, best, stale)
         rms = now
         checks += 1
         it += k_sweeps
+    count.sweeps += it
     return f, it
 
 
@@ -160,10 +207,12 @@ def tiled_solve_momentum(
     check_every: int = 1,
     slab_rows: int = 256,
     return_count: bool = False,
+    _staged: bool = False,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, int]]:
     """Red-black momentum solve (float32) with the TPU kernel's residual,
     check cadence and stall policy. With `return_count`, returns
-    (phi, sweeps_run)."""
+    (phi, sweeps_run). `_staged` runs the staged form on the card (the
+    gates hold the fused loop against it)."""
     if phi.dtype != torch.float32:
         raise ValueError("tiled_solve_momentum is float32-only")
     k_sweeps = check_halo(slab_rows, phi.shape[1], scheme, check_every)
@@ -180,9 +229,12 @@ def tiled_solve_momentum(
                              "and the face fluxes on the field's device")
         nu_dev = torch.as_tensor(nu, dtype=torch.float32,
                                  device=phi.device).reshape(1).contiguous()
-        out, it = _solve_on_card(phi, old, ff, scheme == QUICK, dx, dy, dt,
-                                 nu_dev, volp, tol, max_iter, k_sweeps)
+        solve = _solve_host_exit if _staged else _solve_on_card
+        out, it = solve(phi, old, ff, scheme == QUICK, dx, dy, dt, nu_dev, volp, tol,
+                        max_iter, k_sweeps)
     return (out, it) if return_count else out
 
 
 tiled_solve_momentum.launches = 0
+tiled_solve_momentum.reads = 0
+tiled_solve_momentum.sweeps = 0

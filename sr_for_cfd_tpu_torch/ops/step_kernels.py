@@ -18,15 +18,26 @@ on the 12x12 coarse grid, ~2 MB per sweep at 400x400, inside the L2.
   (up to ~66x66 interior), one block runs all K steps with
   `__syncthreads()` only: one launch and one host read per K steps. This
   is the coarse phase (12x12, K=500).
-* Design (b): one launch per stage (momentum half-sweeps, relaxation,
-  boundary fills, fluxes, projection with residual sums and Rhie-Chow),
-  with the inner loops' exits decided on the host from one fixed-order
-  rms read per check, as the pressure wrappers do. The pressure stage is
-  `ops/mg_kernels.py` (multigrid mode: the same frozen-ghost system as
-  the TPU kernel's embedded V-cycle) or `ops/pressure_kernels.py` (point
+* Design (b): a few launches per step. Each momentum loop runs on the
+  fused momentum pass (`csrc/mom_pass.cu`, `ops/mom_pass.py`): one launch
+  per check of `momentum_check_every` sweeps and its residual sum, the
+  loop's exit (its test on the best rms, `pallas_step.py:247-252`)
+  decided on the card; the host enqueues BATCH launches and reads the
+  loop state once per batch, not ahead (a north-star solve runs ~4.2
+  sweeps). Then one launch relaxes each field and fills its ring, one
+  computes the face fluxes, and one projects, takes the three residual
+  sums and fills the rings of u and v. The pressure stage is
+  `ops/mg_kernels.py` (multigrid mode: the same frozen-ghost system as the
+  TPU kernel's embedded V-cycle) or `ops/pressure_kernels.py` (point
   iteration, omega clamped as in the TPU kernel, and `rb_sor.cu` in its
   divide form, (sor r) / ap_d, as `pallas_step.py:309`). This is the
-  400x400 fine phases, and any point-iteration grid too large for (a).
+  400x400 fine phases, and any point-iteration grid too large for (a). A
+  `momentum_check_every` past the fused pass's shared memory runs its
+  momentum on the staged form's half-sweeps.
+  The staged form (`_staged=True`, design (b) before the fused pass: a
+  launch per momentum half-sweep with a finalize and a host read per
+  check, and a launch per relaxation, boundary fill, projection and sum)
+  stays as the card gates' bit-equality reference.
 No design waits on another block; every loop is bounded by K, max_iter,
 MG_MAX_CYCLES or a size.
 
@@ -40,8 +51,10 @@ multigrid mode's frozen-ghost right-hand side.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernels or raises. `simple_step_kernel.launches` counts the
-launches of `fused_step.cu` kernels (the pressure stage of (b) counts on
-its own wrappers).
+launches of `fused_step.cu` and `mom_pass.cu` kernels (no-op ones
+included; the pressure stage of (b) counts on its own wrappers),
+`.reads` the host reads of the momentum loops' rms or state, `.calls` the
+calls on the card.
 """
 
 from __future__ import annotations
@@ -53,7 +66,7 @@ import numpy as np
 import torch
 
 from ..config import DIRICHLET, QUICK, CaseConfig
-from . import kernel_lib
+from . import kernel_lib, mom_pass
 from .bc import BFSInletProfile, apply_bc, apply_bfs_inlet
 from .multigrid import MG_MAX_CYCLES, mg_solve_pressure
 from .stencil import (
@@ -101,32 +114,45 @@ def _coefficients(case: CaseConfig):
     return inv_dx2, inv_dy2, ap_d, sor
 
 
+def _momentum_residual(f0, ff, case: CaseConfig, nu):
+    """The kernel's momentum residual in plain PyTorch: f -> (r, ap) on the
+    interior, with f0 the step-entry field."""
+    mesh, st = case.mesh, case.settings
+    volp, dt = mesh.volp, st.dt
+    inv_dx2, inv_dy2, ap_d, _ = _coefficients(case)
+    quick = st.scheme == QUICK
+    signs = flux_signs(ff)
+    ap = volp / dt + (quick_diag if quick else upwind_diag)(ff, volp, signs) - nu * ap_d
+    flux = quick_flux if quick else upwind_flux
+    f0_int = f0[1:-1, 1:-1]
+
+    def residual(f):
+        fd = _laplacian(f, volp, inv_dx2, inv_dy2)
+        return -(volp / dt * (f[1:-1, 1:-1] - f0_int) + flux(f, ff, signs) - nu * fd), ap
+
+    return residual
+
+
+def _plain_momentum(f0, ff, case: CaseConfig, nu):
+    """The momentum loop of one field in plain PyTorch (the kernel's
+    arithmetic): returns (f, sweeps_run)."""
+    mesh, st = case.mesh, case.settings
+    return sweep_loop(f0, _momentum_residual(f0, ff, case, nu), nx=mesh.nx, ny=mesh.ny,
+                      tol=st.inner_tolerance, max_iter=st.inner_max_iter,
+                      check_every=max(1, st.momentum_check_every))
+
+
 def _plain_one_step(u0, v0, p0, ff, case: CaseConfig, profile, nu):
     mesh, fluid, st = case.mesh, case.fluid, case.settings
     nx, ny = mesh.nx, mesh.ny
     dx, dy, volp, dt, rho = mesh.dx, mesh.dy, mesh.volp, st.dt, fluid.rho
     inv_dx2, inv_dy2, ap_d, sor = _coefficients(case)
-    quick = st.scheme == QUICK
-    signs = flux_signs(ff)
-    ap = volp / dt + (quick_diag if quick else upwind_diag)(ff, volp, signs) - nu * ap_d
-    flux = quick_flux if quick else upwind_flux
     loop = dict(nx=nx, ny=ny, tol=st.inner_tolerance, max_iter=st.inner_max_iter)
 
-    def momentum(f0):
-        f0_int = f0[1:-1, 1:-1]
-
-        def residual(f):
-            fd = _laplacian(f, volp, inv_dx2, inv_dy2)
-            return -(volp / dt * (f[1:-1, 1:-1] - f0_int) + flux(f, ff, signs)
-                     - nu * fd), ap
-
-        return sweep_loop(f0, residual, check_every=max(1, st.momentum_check_every),
-                          **loop)
-
-    u, u_it = momentum(u0)
+    u, u_it = _plain_momentum(u0, ff, case, nu)
     u = under_relax(u, u0[1:-1, 1:-1], st.relax("u"))
     u = apply_bfs_inlet(apply_bc(u, case.u_bc), 0, profile)
-    v, v_it = momentum(v0)
+    v, v_it = _plain_momentum(v0, ff, case, nu)
     v = under_relax(v, v0[1:-1, 1:-1], st.relax("v"))
     v = apply_bfs_inlet(apply_bc(v, case.v_bc), 1, profile)
 
@@ -255,24 +281,52 @@ def _small(lib, u, v, p, ff, prm, u_in, below, nu, stream) -> StepResult:
     return (*outs, FaceFluxes(*fouts), res, [int(x) for x in counts.tolist()])
 
 
-class _Staged:
-    """Design (b): device buffers and stage launches of one call."""
+# momentum checks (launches of momentum_check_every sweeps) enqueued per
+# host read of the loop state, not ahead: 96% of the north star's fine
+# solves run 3 to 6 sweeps (PERF.md), so one batch holds nearly all
+BATCH = 6
 
-    def __init__(self, lib, case: CaseConfig, prm, u_in, below, nu, like):
+
+class _Staged:
+    """Design (b): device buffers and stage launches of one call. `staged`
+    runs the staged form (the gates' reference); a momentum_check_every
+    past the fused pass's shared memory runs its momentum on the staged
+    half-sweeps."""
+
+    def __init__(self, lib, case: CaseConfig, prm, u_in, below, nu, like,
+                 staged: bool = False):
         self.lib, self.case, self.prm = lib, case, prm
         self.u_in, self.below, self.nu = u_in, below, nu
         self.stream = kernel_lib.stream_ptr(like.device)
         nx2, ny2 = like.shape
         dev = like.device
+        st = case.settings
+        k, quick = max(1, st.momentum_check_every), st.scheme == QUICK
+        self.staged = staged
+        self.host_exit = staged or not mom_pass.fits(k, quick)
         self.n_mom = lib.srcfd_step_mom_partials(nx2, ny2)
         self.n_proj = lib.srcfd_step_proj_partials(nx2, ny2)
         self.mom_part = torch.empty(2 * self.n_mom, dtype=torch.float32, device=dev)
         self.proj_part = torch.empty(3 * self.n_proj, dtype=torch.float32, device=dev)
         self.rms_dev = torch.empty(1, dtype=torch.float32, device=dev)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
         self.n_cells = float((nx2 - 2) * (ny2 - 2))
+        if not self.host_exit:
+            coef = mom_pass.Coef(prm.volp, prm.volp_dt, prm.inv_dx2, prm.inv_dy2, prm.ap_d)
+            self.loop = mom_pass.cached_loop(
+                nx2, ny2, str(dev), quick, k, True, coef, float(st.inner_tolerance),
+                int(st.inner_max_iter), True, BATCH, False, simple_step_kernel)
 
     def momentum(self, f0: torch.Tensor, ff: FaceFluxes) -> Tuple[torch.Tensor, int]:
-        """The red-black momentum loop, exits decided on the host."""
+        """The red-black momentum loop: (the result, or f0 when no sweep
+        ran; sweeps run)."""
+        if self.host_exit:
+            return self.momentum_host_exit(f0, ff)
+        return self.loop.solve(f0, f0, ff, self.nu)
+
+    def momentum_host_exit(self, f0: torch.Tensor, ff: FaceFluxes) -> Tuple[torch.Tensor, int]:
+        """The staged momentum loop: half-sweep launches, a finalize and a
+        host read per check, the exit decided on the host."""
         st = self.case.settings
         prm = ctypes.addressof(self.prm)
         f, g = f0.clone(), torch.empty_like(f0)
@@ -296,6 +350,7 @@ class _Staged:
             _launch(self.lib.srcfd_rms_finalize(
                 red, 2 * self.n_mom, self.n_cells, _ptr(self.rms_dev),
                 self.stream), "rms_finalize")
+            simple_step_kernel.reads += 1
             now = t(self.rms_dev.item())
             stale, best = stall_update(now, rms, best, stale)
             rms = now
@@ -309,11 +364,21 @@ class _Staged:
                                        self.stream), "step_bc")
 
     def relax_bc(self, f, f0, alpha: float, var: int) -> None:
+        """The staged form: relaxation, then the boundary fill, in place."""
         nx2, ny2 = f.shape
         if alpha != 1.0:
             _launch(self.lib.srcfd_step_relax(_ptr(f), _ptr(f0), nx2, ny2, alpha,
                                               self.stream), "step_relax")
         self.bc(f, var)
+
+    def relaxed(self, src, f0, alpha: float, var: int) -> torch.Tensor:
+        """Relaxation and boundary fill in one launch, into a new field."""
+        dst = torch.empty_like(f0)
+        _launch(self.lib.srcfd_step_relax_bc(
+            _ptr(src), _ptr(f0), _ptr(dst), alpha, int(alpha != 1.0), var,
+            _ptr(self.u_in), _ptr(self.below), ctypes.addressof(self.prm), self.stream),
+            "step_relax_bc")
+        return dst
 
     def pressure(self, p0, ff: FaceFluxes) -> Tuple[torch.Tensor, int]:
         mesh, fluid, st = self.case.mesh, self.case.fluid, self.case.settings
@@ -335,16 +400,39 @@ class _Staged:
             check_every=max(1, st.pressure_check_every), sor=st.pressure_sor,
             divide=True)
 
+    def fluxes(self, u, v, like: FaceFluxes) -> FaceFluxes:
+        ff = FaceFluxes(*(torch.empty_like(t) for t in like))
+        _launch(self.lib.srcfd_step_fluxes(_ptr(u), _ptr(v), *map(_ptr, ff),
+                                           ctypes.addressof(self.prm), self.stream),
+                "step_fluxes")
+        return ff
+
     def step(self, u0, v0, p0, ff: FaceFluxes):
+        if self.staged:
+            return self.step_staged(u0, v0, p0, ff)
+        st = self.case.settings
+        u_m, u_it = self.momentum(u0, ff)
+        u = self.relaxed(u_m, u0, st.relax("u"), 0)
+        v_m, v_it = self.momentum(v0, ff)
+        v = self.relaxed(v_m, v0, st.relax("v"), 1)
+        ff = self.fluxes(u, v, ff)
+        p_s, p_it = self.pressure(p0, ff)
+        p = self.relaxed(p_s, p0, st.relax("p"), 2)
+        res = torch.empty(3, dtype=torch.float32, device=u.device)
+        _launch(self.lib.srcfd_step_project_bc(
+            _ptr(u), _ptr(v), _ptr(p), _ptr(u0), _ptr(v0), _ptr(p0), *map(_ptr, ff),
+            _ptr(self.proj_part), _ptr(self.ticket), _ptr(res), _ptr(self.u_in),
+            _ptr(self.below), ctypes.addressof(self.prm), self.stream), "step_project_bc")
+        return u, v, p, ff, res, (u_it, v_it, p_it)
+
+    def step_staged(self, u0, v0, p0, ff: FaceFluxes):
         st = self.case.settings
         prm = ctypes.addressof(self.prm)
-        u, u_it = self.momentum(u0, ff)
+        u, u_it = self.momentum_host_exit(u0, ff)
         self.relax_bc(u, u0, st.relax("u"), 0)
-        v, v_it = self.momentum(v0, ff)
+        v, v_it = self.momentum_host_exit(v0, ff)
         self.relax_bc(v, v0, st.relax("v"), 1)
-        ff = FaceFluxes(*(torch.empty_like(t) for t in ff))
-        _launch(self.lib.srcfd_step_fluxes(_ptr(u), _ptr(v), *map(_ptr, ff), prm,
-                                           self.stream), "step_fluxes")
+        ff = self.fluxes(u, v, ff)
         p, p_it = self.pressure(p0, ff)
         self.relax_bc(p, p0, st.relax("p"), 2)
         _launch(self.lib.srcfd_step_project(
@@ -360,16 +448,18 @@ class _Staged:
 
 def simple_step_kernel(u, v, p, ff: FaceFluxes, case: CaseConfig,
                        profile: Optional[BFSInletProfile], nu=None,
-                       _design: Optional[str] = None) -> StepResult:
+                       _design: Optional[str] = None, _staged: bool = False) -> StepResult:
     """`steps_per_kernel` whole outer steps; returns (u, v, p, ff,
     res_sums[3], counts[3]). `_design` ('a' or 'b', else
     `simple_step_kernel.force_design`) forces a design; by default (a)
     takes point-iteration grids that fit one block's shared memory and (b)
-    the rest."""
+    the rest. `_staged` runs design (b)'s staged form (the card gates hold
+    design (b) against it)."""
     if u.device.type == "cpu":
         return simple_step_plain(u, v, p, ff, case, profile, nu=nu)
     for name, t in (("u", u), ("v", v), ("p", p)):
         kernel_lib.check_field(t, f"fused-step ({name})")
+    simple_step_kernel.calls += 1
     ff = FaceFluxes(*(t.contiguous() for t in ff))
     for t in ff:
         if t.dtype != torch.float32 or t.device != u.device:
@@ -392,7 +482,7 @@ def simple_step_kernel(u, v, p, ff: FaceFluxes, case: CaseConfig,
                       kernel_lib.stream_ptr(u.device))
     if design != "b":
         raise ValueError(f"unknown design {design!r}")
-    staged = _Staged(lib, case, prm, u_in, below, nu, u)
+    staged = _Staged(lib, case, prm, u_in, below, nu, u, staged=_staged)
     counts = [0, 0, 0]
     res = None
     for _ in range(prm.k_steps):
@@ -402,6 +492,8 @@ def simple_step_kernel(u, v, p, ff: FaceFluxes, case: CaseConfig,
 
 
 simple_step_kernel.launches = 0
+simple_step_kernel.reads = 0
+simple_step_kernel.calls = 0
 # 'b' makes every call through the solver take design (b): the tests and
 # chip_smoke.py drive (b) at small sizes with it
 simple_step_kernel.force_design = None

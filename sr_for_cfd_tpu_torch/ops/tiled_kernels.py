@@ -15,14 +15,15 @@ the rms, runs the stall policy (as `rb_sor.cu`'s single-block loop does)
 and sets `done` in a small device state (rms, best, stale, checks, it,
 done); every block of a later launch returns at once when `done` is set.
 So the host enqueues batches of BATCH launches (`_TiledLoop`, cached per
-shape and setting, built by the solver's `precompile()`) and reads the
-state once per batch: ceil(sweeps / BATCH) reads, at most ceil(max_iter /
-BATCH) batches. Each batch's state is copied to pinned host memory behind
-it, and the next batch is enqueued before the host waits for that copy, so
-the card does not idle while the host reads; a batch enqueued after the
-exit runs as no-op launches. The result is the buffer that sweep number
-`it` wrote. `exit_state_step` is the plain twin of the last block's state
-update.
+shape and setting, built by the solver's `precompile()`, on
+`ops/exit_loop.py`'s `DeviceExitLoop`, which the momentum loops share) and
+reads the state once per batch: ceil(sweeps / BATCH) reads, at most
+ceil(max_iter / BATCH) batches. Each batch's state is copied to pinned host
+memory behind it, and the next batch is enqueued before the host waits for
+that copy, so the card does not idle while the host reads; a batch
+enqueued after the exit runs as no-op launches. The result is the buffer
+that sweep number `it` wrote. `exit_loop.exit_state_step` is the plain
+twin of the last block's state update.
 
 The JAX function's `slab_rows` and `check_every` are left out: neither
 changes the result (the sweep is the same at every slab height, and the
@@ -44,13 +45,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from . import kernel_lib, shard_rb
+from .exit_loop import DeviceExitLoop, first_done
 from .pressure_kernels import _coefficients, solve_pressure_plain
 from .stencil import FaceFluxes
 from .sweeps import (
@@ -66,63 +67,20 @@ from .sweeps import (
 BATCH = 8
 
 
-@dataclass
-class ExitState:
-    """The loop state the kernel keeps on the card (csrc/shard_rb.cu
-    TiledState), in numpy float32 and ints."""
-
-    rms: np.float32 = np.float32(np.inf)
-    best: np.float32 = np.float32(np.inf)
-    stale: int = 0
-    checks: int = 0
-    it: int = 0
-    done: int = 0
-
-
-def exit_state_step(s: ExitState, now: np.float32, tol: np.float32,
-                    max_iter: int) -> ExitState:
-    """Plain twin of the kernel's last block after a sweep whose rms is
-    `now`, written as the C code is: the stall policy of
-    `rb_sor_loop_small_kernel` (NaN-propagating best), then `done` when the
-    host loop's condition fails."""
-    f = np.float32
-    new_best = now < f(STALL_RESET_RATIO) * s.best
-    descending = now < f(STALL_RATIO) * s.rms
-    stale = 0 if new_best else (s.stale if descending else s.stale + 1)
-    best = f(np.nan) if (np.isnan(s.best) or np.isnan(now)) else f(np.fmin(s.best, now))
-    checks, it = s.checks + 1, s.it + 1
-    stop = stale >= STALL_PATIENCE and checks >= STALL_MIN_CHECKS
-    done = int(not (it < max_iter and now >= tol and not stop))
-    return ExitState(f(now), best, stale, checks, it, done)
-
-
-def _state_words(s: ExitState) -> np.ndarray:
-    """An ExitState as the kernel's 8 int32 words."""
-    w = np.zeros(8, dtype=np.int32)
-    w[:2].view(np.float32)[:] = (s.rms, s.best)
-    w[2:6] = (s.stale, s.checks, s.it, s.done)
-    return w
-
-
-def _first_done(tol32: np.float32, max_iter: int) -> bool:
-    """The host loop's condition before any sweep, failed."""
-    return not (0 < max_iter and np.float32(np.inf) >= tol32 and not stalled(0, 0))
-
-
-class _TiledLoop:
+class _TiledLoop(DeviceExitLoop):
     """The device-exit loop of one shape and setting: two field buffers
     with the ghost ring, the right-hand side, the kernel's partials, ticket
     and loop state, owned here as long as the parameter block that points
-    at them. `_plan` overrides the fused kernel's plan (the card gates hold
-    the other tile side against the default)."""
+    at them; batches of BATCH launches, the next enqueued ahead. `_plan`
+    overrides the fused kernel's plan (the card gates hold the other tile
+    side against the default)."""
 
     def __init__(self, nx2: int, ny2: int, device, inv_dx2: float, inv_dy2: float,
                  volp: float, sor: float, ap_d: float, tol: float, max_iter: int,
                  *, _plan=None):
-        self.device = torch.device(device)
-        self.lib = kernel_lib.load_library()
+        super().__init__(device, tol, max_iter, counter=tiled_solve_pressure, batch=BATCH,
+                         ahead=True)
         self.nx2, self.ny2 = nx2, ny2
-        self.max_iter, self.tol32 = int(max_iter), np.float32(tol)
 
         def zeros(shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -132,13 +90,6 @@ class _TiledLoop:
         self.plan = _plan or shard_rb.shard_rb_plan(nx2, ny2, 1, 1)
         self.partials = zeros(self.plan.n_sum)
         self.ticket = zeros(1, torch.int32)
-        self.state = zeros(8, torch.int32)
-        self.fresh = torch.from_numpy(_state_words(ExitState())).to(self.device)
-        # each batch's state on the host: pinned, copied behind the batch
-        on_card = self.device.type == "cuda"
-        self.seen = [torch.zeros(8, dtype=torch.int32, pin_memory=on_card)
-                     for _ in range(2)]
-        self.copied = [torch.cuda.Event() if on_card else None for _ in range(2)]
         self.params = shard_rb.make_params(
             self.plan, nx2, ny2, nxg=nx2 - 2, h=1, mode=1, inv_dx2=inv_dx2,
             inv_dy2=inv_dy2, volp=volp, sor=sor, inv_ap=1.0 / ap_d, ap_d=ap_d,
@@ -155,45 +106,17 @@ class _TiledLoop:
             self.addr, src.data_ptr(), dst.data_ptr() + 4 * self.ny2, self.b.data_ptr(),
             None, 0, stream), "tiled_rb_fused")
 
-    def enqueue(self, k: int, stream: int) -> None:
-        """Batch k (sweeps k * BATCH + 1 ..., at most max_iter in all), then
-        the copy of the state behind it."""
-        first = k * BATCH
-        n = min(BATCH, self.max_iter - first)
-        for i in range(first, first + n):
-            self.launch(i, stream)
-        tiled_solve_pressure.launches += n
-        self.seen[k % 2].copy_(self.state, non_blocking=True)
-        if self.copied[k % 2] is not None:
-            self.copied[k % 2].record()
-
     def solve(self, p: torch.Tensor, rhs: torch.Tensor) -> Tuple[torch.Tensor, int]:
         """Sweeps from p (its ghost ring frozen) for volp Lap(p) = rhs (the
         interior right-hand side); returns (p, sweeps_run)."""
-        if _first_done(self.tol32, self.max_iter):
+        if first_done(self.tol32, self.max_iter):
             return p.clone(memory_format=torch.contiguous_format), 0
         self.bufs[0].copy_(p)
         # the kernel writes rows 1..nx
         self.bufs[1][0].copy_(p[0])
         self.bufs[1][-1].copy_(p[-1])
         self.b[1:-1, 1:-1].copy_(rhs)
-        self.state.copy_(self.fresh)
-        stream = kernel_lib.stream_ptr(self.device)
-        batches = -(-self.max_iter // BATCH)
-        words = None
-        self.enqueue(0, stream)
-        for k in range(batches):
-            if k + 1 < batches:
-                self.enqueue(k + 1, stream)
-            if self.copied[k % 2] is not None:
-                self.copied[k % 2].synchronize()
-            tiled_solve_pressure.reads += 1
-            words = self.seen[k % 2].tolist()
-            if words[5]:
-                break
-        if words is None or not words[5]:
-            raise RuntimeError("the tiled loop's device state never set done")
-        it = words[4]
+        it = self.run(self.launch)
         tiled_solve_pressure.sweeps += it
         return self.bufs[it % 2].clone(), it
 

@@ -41,8 +41,9 @@ from ..utils.naming import (
 def kernel_launch_counts() -> Dict[str, int]:
     """Launch counters of the CUDA kernel wrappers (kernels run, a graph
     replay counting its kernels), the V-cycle graphs' replays, the tiled
-    loop's sweeps and host reads of its device state, and the RRE jumps
-    attempted and taken."""
+    loops' sweeps and host reads of their device state, the fused step's
+    calls and momentum host reads, and the RRE jumps attempted and
+    taken."""
     from ..ops import stream_kernels as sk
     from ..ops.extrapolate import rre_extrapolate
     from ..ops.mg_kernels import mg_solve_pressure_kernel
@@ -55,7 +56,11 @@ def kernel_launch_counts() -> Dict[str, int]:
     return {"rb_sor_pressure": solve_pressure_kernel.launches,
             "mg_vcycle_pressure": mg_solve_pressure_kernel.launches,
             "fused_step": simple_step_kernel.launches,
+            "fused_step_reads": simple_step_kernel.reads,
+            "fused_step_calls": simple_step_kernel.calls,
             "tiled_momentum": tiled_solve_momentum.launches,
+            "tiled_momentum_sweeps": tiled_solve_momentum.sweeps,
+            "tiled_momentum_reads": tiled_solve_momentum.reads,
             "stream_pass_a": sk.stream_pass_a.launches,
             "stream_level1": sk.level1_correction.launches,
             "mg_vcycle_replays": mg_solve_pressure_kernel.replays,

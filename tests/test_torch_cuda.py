@@ -660,3 +660,199 @@ def test_mg_failed_capture_raises(card, monkeypatch, fault):
     torch.cuda.synchronize()
     out, n = mg_solve_pressure_kernel(p, ff, **geo, tol=1e-30, max_cycles=3)
     _close(out, mg_solve_pressure(p, ff, **geo, tol=1e-30, max_cycles=3)[0])
+
+
+# ---- the fused momentum pass (rows 3 and 4) --------------------------------
+
+
+def _mom_problem(card, nx, ny, seed):
+    """A seeded row 4 problem on the card: (u, old interior, fluxes,
+    keywords of tiled_solve_momentum)."""
+    rng = np.random.default_rng(seed)
+    u = torch.tensor(rng.standard_normal((nx + 2, ny + 2)) * 0.3, dtype=torch.float32,
+                     device=card)
+    v = torch.tensor(rng.standard_normal((nx + 2, ny + 2)) * 0.3, dtype=torch.float32,
+                     device=card)
+    old = u[1:-1, 1:-1] + torch.tensor(rng.standard_normal((nx, ny)) * 0.01,
+                                       dtype=torch.float32, device=card)
+    dx, dy = 1.0 / nx, 0.7 / ny
+    return u, old, face_fluxes(u, v, dx, dy), dict(dx=dx, dy=dy, dt=1e-3, nu=0.01,
+                                                   volp=dx * dy)
+
+
+def _step_case(card, nx, ny, scheme="UPWIND", **settings):
+    """A BFS fused-step solver on the card, seeded smooth state, and the
+    design (b) stage object with its parameter block."""
+    from sr_for_cfd_tpu_torch.ops import kernel_lib
+    from sr_for_cfd_tpu_torch.ops import step_kernels as stk
+
+    kw = dict(nx=nx, ny=ny, scheme=scheme, pressure_solver="multigrid",
+              steps_per_kernel=1, **settings)
+    solver = _fused_solver(make_bfs_solver, card, **kw)
+    prm = stk.step_params(solver.case, True)
+    u_in, below = stk._inlet(solver.profile, solver.state.u)
+    nu = stk._nu_tensor(solver._nu, solver.state.u).reshape(1).contiguous()
+    staged = stk._Staged(kernel_lib.load_library(), solver.case, prm, u_in, below, nu,
+                         solver.state.u)
+    return solver, staged, prm, nu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row,nx,ny,scheme,k", [
+    ("step", 400, 400, "UPWIND", 1),   # the north-star fine grid
+    ("tiled", 2048, 2048, "QUICK", 3),  # the big grid
+    ("tiled", 70, 45, "QUICK", 2),
+    ("step", 61, 38, "QUICK", 3),
+    ("tiled", 33, 130, "UPWIND", 13)])  # the largest k of UPWIND's plan but one
+def test_mom_pass_matches_staged_form(card, row, nx, ny, scheme, k):
+    """One fused pass against the staged form (2k half-sweep launches and
+    the finalize): field and rms bit-equal, with the old field
+    interior-shaped (row 4) or padded (row 3)."""
+    from sr_for_cfd_tpu_torch.ops import mom_pass
+    from sr_for_cfd_tpu_torch.ops.momentum_kernels import _coefficients
+
+    quick = scheme == "QUICK"
+    if row == "tiled":
+        f0, old, ff, kw = _mom_problem(card, nx, ny, nx + k)
+        nu = torch.full((1,), kw["nu"], dtype=torch.float32, device=card)
+        coef = mom_pass.Coef(kw["volp"], kw["volp"] / kw["dt"],
+                             *_coefficients(kw["dx"], kw["dy"], kw["volp"]))
+        prm = None
+    else:
+        solver, _, prm, nu = _step_case(card, nx, ny, scheme, momentum_check_every=k)
+        f0 = old = solver.state.u
+        ff = solver.state.ff
+        coef = mom_pass.Coef(prm.volp, prm.volp_dt, prm.inv_dx2, prm.inv_dy2, prm.ap_d)
+    staged = mom_pass.StagedPass(f0, old, ff, nu, k, quick, coef, prm)
+    ref = f0.clone()
+    staged(ref)
+    one = mom_pass.OnePass(nx + 2, ny + 2, card, quick=quick, k=k,
+                           old_padded=prm is not None, coef=coef)
+    out = torch.full_like(f0, float("nan"))
+    one(f0, out, old, ff, nu)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(one.rms, staged.rms)
+
+
+@pytest.mark.cuda
+def test_tiled_momentum_device_exit_matches_host_exit(card):
+    """Row 4's loop (QUICK, 3 sweeps a pass, batches of 2) against the
+    host-exit loop on a 130x97 grid: bit-equal fields and equal counts with
+    the exit by max_iter at every position of a batch, by the tolerance,
+    and by the stall policy (tol 0 on a 14x12 grid)."""
+    from sr_for_cfd_tpu_torch.ops import momentum_kernels as mk
+
+    for nx, ny, tols, iters in ((130, 97, (0.0, 1e-3), range(1, 3 * 2 * mk.BATCH + 2)),
+                                (14, 12, (0.0,), (30000,))):
+        u, old, ff, kw = _mom_problem(card, nx, ny, nx)
+        for tol in tols:
+            for max_iter in (iters if tol == 0.0 else (300,)):
+                args = dict(kw, scheme="QUICK", tol=tol, max_iter=max_iter, check_every=3,
+                            return_count=True)
+                out, n = mk.tiled_solve_momentum(u, old, ff, **args)
+                ref, n_ref = mk.tiled_solve_momentum(u, old, ff, _staged=True, **args)
+                torch.cuda.synchronize()
+                assert n == n_ref and torch.equal(out, ref), (nx, tol, max_iter)
+                if nx == 14:
+                    assert n < max_iter  # the stall policy ended it
+                elif tol == 0.0:
+                    assert n == 3 * -(-max_iter // 3)
+
+
+@pytest.mark.cuda
+def test_step_momentum_device_exit_matches_host_exit(card):
+    """Row 3's loop (the test on the best rms, batches of BATCH) against
+    the host-exit loop on a 64x48 BFS grid at dt 0.1 (the rms falls from
+    1.9e-2 to 1.2e-8 in 16 sweeps, a new best at each): bit-equal fields
+    and equal counts with the exit by max_iter at every position of two
+    batches, and at a tolerance."""
+    from dataclasses import replace
+
+    from sr_for_cfd_tpu_torch.ops import step_kernels as stk
+
+    solver, _, prm, nu = _step_case(card, 64, 48, dt=0.1)
+    s = solver.state
+    for m, tol in [(m, 0.0) for m in range(1, 2 * stk.BATCH + 2)] + [(200, 1e-4)]:
+        case = replace(solver.case, settings=replace(solver.case.settings,
+                                                     inner_max_iter=m, inner_tolerance=tol))
+        st = stk._Staged(stk.kernel_lib.load_library(), case, prm, *stk._inlet(
+            solver.profile, s.u), nu, s.u)
+        out, n = st.momentum(s.u, s.ff)
+        ref, n_ref = st.momentum_host_exit(s.u, s.ff)
+        torch.cuda.synchronize()
+        assert n == n_ref and torch.equal(out, ref), (m, tol)
+        assert n == m if tol == 0.0 else n < m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["b_cavity64_quick_k2", "b_bfs40_multigrid_k2"])
+def test_design_b_step_matches_its_staged_form(card, name):
+    """Design (b) (momentum on the fused pass's device-exit loop, the
+    folded stages) against its staged form: every output bit-equal, equal
+    counts, fewer momentum host reads."""
+    _, make, kw = FUSED[name]
+    solver = _fused_solver(make, card, **kw)
+    s = solver.state
+    args = (s.u, s.v, s.p, s.ff, solver.case, solver.profile)
+    reads = simple_step_kernel.reads
+    out = simple_step_kernel(*args, nu=solver._nu, _design="b")
+    reads = simple_step_kernel.reads - reads
+    staged_reads = simple_step_kernel.reads
+    ref = simple_step_kernel(*args, nu=solver._nu, _design="b", _staged=True)
+    staged_reads = simple_step_kernel.reads - staged_reads
+    torch.cuda.synchronize()
+    for a, b in zip((*out[:3], *out[3], out[4]), (*ref[:3], *ref[3], ref[4])):
+        assert torch.equal(a, b)
+    assert out[5] == ref[5] and reads < staged_reads
+
+
+@pytest.mark.cuda
+def test_momentum_past_the_fused_budget(card):
+    """A k whose tile passes the fused pass's shared memory runs on the
+    staged form, as JAX runs it: row 4 at QUICK k = 14 (29 launches a
+    pass) and design (b) with momentum_check_every = 15 (UPWIND), against
+    the plain versions."""
+    from sr_for_cfd_tpu_torch.ops import mom_pass
+    from sr_for_cfd_tpu_torch.ops import momentum_kernels as mk
+
+    assert not mom_pass.fits(14, True) and not mom_pass.fits(15, False)
+    u, old, ff, kw = _mom_problem(card, 64, 60, 14)
+    args = dict(kw, scheme="QUICK", tol=0.0, max_iter=28, check_every=14)
+    before = mk.tiled_solve_momentum.launches
+    out, n = mk.tiled_solve_momentum(u, old, ff, return_count=True, **args)
+    assert mk.tiled_solve_momentum.launches - before == 2 * 29
+    ref, n_ref = mk.tiled_solve_momentum_plain(u, old, ff, **args)
+    _close(out, ref)
+    assert n == n_ref == 28
+    solver = _fused_solver(make_bfs_solver, card, nx=40, ny=30, scheme="UPWIND",
+                           pressure_solver="multigrid", steps_per_kernel=1,
+                           inner_tolerance=1e-3, momentum_check_every=15)
+    s = solver.state
+    step_args = (s.u, s.v, s.p, s.ff, solver.case, solver.profile)
+    out = simple_step_kernel(*step_args, nu=solver._nu, _design="b")
+    ref = simple_step_plain(*step_args, nu=solver._nu)
+    for a, b in zip((*out[:3], *out[3]), (*ref[:3], *ref[3])):
+        _close(a, b)
+    assert out[5] == ref[5]
+
+
+@pytest.mark.cuda
+def test_momentum_loop_cache_survives_turnover(card):
+    """More settings than the loop cache holds, then the first again, with
+    no cache cleared: every solve bit-equal to the host-exit loop, and each
+    cached loop's parameter block points at its own partials, ticket and
+    state."""
+    from sr_for_cfd_tpu_torch.ops import mom_pass
+    from sr_for_cfd_tpu_torch.ops import momentum_kernels as mk
+
+    n_settings = mom_pass.cached_loop.cache_info().maxsize + 3
+    cases = [(40 + 3 * i, 30 + i, 1e-3 * (1 + i % 3)) for i in range(n_settings)]
+    for nx, ny, tol in cases + cases[:1]:
+        u, old, ff, kw = _mom_problem(card, nx, ny, nx + ny)
+        args = dict(kw, scheme="QUICK", tol=tol, max_iter=60, check_every=3,
+                    return_count=True)
+        out, n = mk.tiled_solve_momentum(u, old, ff, **args)
+        ref, n_ref = mk.tiled_solve_momentum(u, old, ff, _staged=True, **args)
+        torch.cuda.synchronize()
+        assert n == n_ref and torch.equal(out, ref), (nx, ny)
+    assert mom_pass.cached_loop.cache_info().currsize == mom_pass.cached_loop.cache_info().maxsize

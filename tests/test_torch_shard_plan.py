@@ -38,7 +38,7 @@ import numpy as np
 import pytest
 import torch
 
-from sr_for_cfd_tpu_torch.ops import kernel_lib, shard_rb
+from sr_for_cfd_tpu_torch.ops import exit_loop, kernel_lib, shard_rb
 from sr_for_cfd_tpu_torch.ops import tiled_kernels as tk
 from sr_for_cfd_tpu_torch.ops.pressure_kernels import _coefficients, solve_pressure_plain
 from sr_for_cfd_tpu_torch.ops.stencil import face_fluxes
@@ -358,12 +358,12 @@ def test_exit_state_twin_matches_the_host_policy(case):
         tol, max_iter = 0.0, n
     seq = seq.astype(np.float32)
     ref = _host_exits(seq, tol, max_iter)
-    s = tk.ExitState()
+    s = exit_loop.ExitState()
     got = []
     for now in seq:
         if s.done:
             break
-        s = tk.exit_state_step(s, np.float32(now), np.float32(tol), max_iter)
+        s = exit_loop.exit_state_step(s, np.float32(now), np.float32(tol), max_iter)
         got.append((s.stale, s.best, bool(s.done)))
     assert len(got) == len(ref) and got[-1][2]
     for (stale, best, done), (r_stale, r_best, r_done) in zip(got, ref):
@@ -430,10 +430,10 @@ class _StubLib:
         dst[1:-1] = f[1:-1]
         ss = torch.sum(torch.where(red, r1 * r1, 0.0) + torch.where(red, 0.0, r2 * r2))
         now = np.float32(torch.sqrt(ss / (nx * ny)).item())
-        s = tk.ExitState(words[:2].view(np.float32)[0], words[:2].view(np.float32)[1],
+        s = exit_loop.ExitState(words[:2].view(np.float32)[0], words[:2].view(np.float32)[1],
                          *(int(w) for w in words[2:6]))
-        s = tk.exit_state_step(s, now, np.float32(prm.tol), prm.max_iter)
-        loop.state.copy_(torch.from_numpy(tk._state_words(s)))
+        s = exit_loop.exit_state_step(s, now, np.float32(prm.tol), prm.max_iter)
+        loop.state.copy_(torch.from_numpy(exit_loop.state_words(s)))
 
 
 def _tiled_problem(n, seed):
