@@ -30,9 +30,13 @@ no result line:
    step's device-exit momentum loop bit-equal to its host-exit loop at
    every batch position and on a north-star solve, both loops timed with
    their launches and host reads. The streamed V-cycle at 2048x2048:
-   pass A, level-1 correction and pass B each alone, one forced streamed
-   cycle and
-   a 5-cycle streamed solve. The tiled red-black sweep (row 5) at
+   pass A, level-1 correction and pass B each alone against the plain
+   versions, the fused passes (rows 6 and 7, one launch each) bit-equal to
+   their staged forms (11 and 9 launches; pass A's x, level-1 right-hand
+   side and entry rms, pass B's x) and timed against them in turns (fused,
+   staged, staged, fused); one forced streamed cycle and a 5-cycle
+   streamed solve against the plain loop (equal cycle counts) and bit-equal
+   to the loop on the staged passes. The tiled red-black sweep (row 5) at
    2048x2048 (omega 1.9), the device-exit loop (the fused kernel, the
    exit state on the card, batches of 8 launches, one host read per
    batch) bit-equal to the plain version and to the host-exit
@@ -103,7 +107,9 @@ no result line:
    phases, and each fine phase of 4 must have attempted an RRE jump. 4
    prints design (b)'s launches and momentum host reads per fine step and
    5 the momentum launches and host reads per step, both the histogram of
-   sweeps per device-exit momentum solve. 5c
+   sweeps per device-exit momentum solve; 5 also passes A's and B's
+   launches per step, and fails unless each launched one kernel per
+   V-cycle. 5c
    and 5d print ms/iter, inner counts, row 9 launches and collectives per
    step.
 6. references: the non-fused configuration of 3 and the fused one of 4 (with
@@ -682,11 +688,14 @@ def max_err(pairs):
 def phase_big_grid_kernels(device):
     """The streamed V-cycle's kernels against their plain versions at 2048^2
     on the same seeded inputs: pass A, the level-1 correction and pass B
-    each alone; one forced streamed V-cycle and a 5-cycle streamed solve.
-    (The big grid's momentum: phase_momentum_kernels.)"""
+    each alone, the fused passes also bit-equal to their staged forms and
+    timed against them in turns; one forced streamed V-cycle and a 5-cycle
+    streamed solve, also bit-equal to the loop on the staged passes. (The
+    big grid's momentum: phase_momentum_kernels.)"""
     import numpy as np
 
     from sr_for_cfd_tpu_torch.ops import stream_kernels as sk
+    from sr_for_cfd_tpu_torch.ops.mg_kernels import _Tally
     from sr_for_cfd_tpu_torch.ops.multigrid import frozen_ghost_rhs
 
     n = BIG_N
@@ -705,10 +714,16 @@ def phase_big_grid_kernels(device):
     err, worst = max_err([(xa, xa_p), (b1, b1_p), (rms, rms_p.reshape(1))])
     log(f"  stream_pass_a {n}^2: max_abs_err={err:.3e} ({worst:.3f} of its "
         f"tolerance), entry rms kernel={rms.item():.6e} plain={rms_p.item():.6e}")
+    staged = sk.stream_pass_a_staged(x, b, lv, counter=_Tally())
+    same(gates, f"stream_pass_a {n}^2 fused vs staged (x, b1, entry rms)", (xa, b1, rms), 1,
+         staged, 1)
     rows["stream_pass_a"] = dict(max_abs_err=err, **timed(
         "stream_pass_a", lambda: sk.stream_pass_a(x, b, lv),
         lambda: sk.stream_pass_a_plain(x, b, lv), stream_work(lv, "a"),
         counter=sk.stream_pass_a))
+    rows["stream_pass_a"].update(pass_turns(
+        "stream_pass_a", lambda: sk.stream_pass_a(x, b, lv),
+        lambda c: sk.stream_pass_a_staged(x, b, lv, counter=c)))
     e = sk.level1_correction(b1_p, lv).clone()
     e_p = sk.level1_correction_plain(b1_p, lv)
     err, worst = max_err([(e, e_p)])
@@ -721,15 +736,20 @@ def phase_big_grid_kernels(device):
     rows["stream_level1"].update(cycle_forms(
         f"stream_level1_correction {n}^2", lv.cycle,
         lambda c: (c.correction(b1_p), 1), (e, 1), reads=0, copies=1, reps=5))
-    xb = sk.stream_pass_b(xa_p.clone(), b, e_p, lv)
+    xb = sk.stream_pass_b(xa_p, b, e_p, lv)
     xb_p = sk.stream_pass_b_plain(xa_p, b, e_p, lv)
     err, worst = max_err([(xb, xb_p)])
     log(f"  stream_pass_b {n}^2: max_abs_err={err:.3e} ({worst:.3f} of its tolerance)")
+    same(gates, f"stream_pass_b {n}^2 fused vs staged (x)", (xb,), 1,
+         (sk.stream_pass_b_staged(xa_p.clone(), b, e_p, lv, counter=_Tally()),), 1)
     scratch = xa_p.clone()
     rows["stream_pass_b"] = dict(max_abs_err=err, **timed(
-        "stream_pass_b", lambda: sk.stream_pass_b(scratch, b, e_p, lv),
+        "stream_pass_b", lambda: sk.stream_pass_b(xa_p, b, e_p, lv),
         lambda: sk.stream_pass_b_plain(xa_p, b, e_p, lv), stream_work(lv, "b"),
         counter=sk.stream_pass_b))
+    rows["stream_pass_b"].update(pass_turns(
+        "stream_pass_b", lambda: sk.stream_pass_b(xa_p, b, e_p, lv),
+        lambda c: sk.stream_pass_b_staged(scratch, b, e_p, lv, counter=c)))
     for gate, cycles in (("one forced cycle", 1), ("5-cycle solve", 5)):
         kw = dict(geo, tol=1e-30, max_cycles=cycles, return_count=True)
         out_k, n_k = sk.stream_mg_solve_pressure(p, ff, **kw)
@@ -738,6 +758,9 @@ def phase_big_grid_kernels(device):
         err, worst = max_err([(out_k, out_p)])
         if not n_k == n_p == cycles:
             fail(f"streamed solve {gate}: {n_k} cycles, plain {n_p}")
+        out_s, n_s = plain_streamed_solve(p, ff, geo, cycles, staged=True)
+        same(gates, f"stream_mg_solve_pressure {gate} {n}^2, fused vs staged passes",
+             (out_k,), n_k, (out_s,), n_s)
         log(f"  stream_mg_solve_pressure {gate} {n}^2: max_abs_err={err:.3e} "
             f"({worst:.3f} of its tolerance), cycles kernel={n_k} plain={n_p}")
         ms = cuda_ms(lambda: sk.stream_mg_solve_pressure(p, ff, **kw), 2)
@@ -751,6 +774,24 @@ def phase_big_grid_kernels(device):
                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by))
     return rows, gates
+
+
+def pass_turns(name, fused, staged, reps=100):
+    """A fused streamed pass against its staged form, in turns (fused,
+    staged, staged, fused; CUDA events over `reps` calls each): the fused
+    call's ms (mean of its two turns), the staged form's, and the staged
+    form's launches per call."""
+    from sr_for_cfd_tpu_torch.ops.mg_kernels import _Tally
+
+    tally = _Tally()
+    staged(tally)
+    t = [cuda_ms(fused, reps), cuda_ms(lambda: staged(tally), reps)]
+    t += [cuda_ms(lambda: staged(tally), reps), cuda_ms(fused, reps)]
+    per = tally.launches // (2 * reps + 3)
+    log(f"  {name} in turns: fused {t[0]:.5f} / {t[3]:.5f} ms (1 launch), staged "
+        f"{t[1]:.5f} / {t[2]:.5f} ms ({per} launches)")
+    return dict(turns_ms=t, ms=(t[0] + t[3]) / 2, staged_ms=(t[1] + t[2]) / 2,
+                staged_launches_per_call=per)
 
 
 def timed(name, kernel, plain, work, reps=5, counter=None):
@@ -971,12 +1012,15 @@ def phase_momentum_kernels(device):
     return rows
 
 
-def plain_streamed_solve(p, ff, geo, cycles):
+def plain_streamed_solve(p, ff, geo, cycles, staged=False):
     """`cycles` streamed V-cycles (no exit check) with the plain versions,
-    on p's device: the reference of the streamed solve gates."""
+    on p's device: the reference of the streamed solve gates. With
+    `staged`, the passes' staged forms and the level-1 correction's graph
+    instead (the fused passes' bit-equality reference)."""
     import torch
 
     from sr_for_cfd_tpu_torch.ops import stream_kernels as sk
+    from sr_for_cfd_tpu_torch.ops.mg_kernels import _Tally
     from sr_for_cfd_tpu_torch.ops.multigrid import frozen_ghost_rhs
 
     nx, ny = p.shape[0] - 2, p.shape[1] - 2
@@ -984,7 +1028,16 @@ def plain_streamed_solve(p, ff, geo, cycles):
     inv_dx2, inv_dy2 = lv.setup.spacings[0]
     b = frozen_ghost_rhs(p, ff, geo["dt"], geo["rho"], geo["volp"], inv_dx2, inv_dy2)
     x = p[1:-1, 1:-1]
+    if staged:
+        lv = sk.stream_levels(nx, ny, geo["dx"], geo["dy"], geo["volp"], str(p.device),
+                              4, 4, sk.MG_SMOOTHER_SOR, 8, 40)
+        x, b = x.contiguous(), b.contiguous()
     for _ in range(cycles):
+        if staged:
+            x, b1, _ = sk.stream_pass_a_staged(x, b, lv, counter=_Tally())
+            x = sk.stream_pass_b_staged(x, b, sk.level1_correction(b1, lv), lv,
+                                        counter=_Tally())
+            continue
         x, b1, _ = sk.stream_pass_a_plain(x, b, lv)
         x = sk.stream_pass_b_plain(x, b, sk.level1_correction_plain(b1, lv), lv)
     out = p.clone()
@@ -1409,6 +1462,13 @@ def phase_big_grid(device):
         if launches[name] <= 0:
             fail(f"the {name} kernel did not launch on the big-grid path")
     mean = {c: sum(x[c] for x in counts) / iters for c in "uvp"}
+    cycles = sum(x["p"] for x in counts)
+    if launches["stream_pass_a"] != cycles or launches["stream_pass_b"] != cycles:
+        fail(f"big-grid cavity: passes A and B launched {launches['stream_pass_a']} and "
+             f"{launches['stream_pass_b']} kernels in {cycles} V-cycles, not one each")
+    log(f"  big-grid cavity: {cycles} V-cycles; launches per step: pass A "
+        f"{launches['stream_pass_a'] / iters:.2f}, pass B "
+        f"{launches['stream_pass_b'] / iters:.2f} (one each per V-cycle)")
     if any(x["u"] % 3 or x["v"] % 3 for x in counts):
         fail("big-grid cavity: momentum sweeps are not multiples of 3")
     log(f"  big-grid cavity {BIG_N}^2 Re=1000 QUICK: {iters} steps in {elapsed:.3f} s, "
@@ -2048,13 +2108,15 @@ def main():
              library_ms=None, **launches("tiled_momentum"),
              **mom_rows["tiled_momentum"],
              gates=[g for g in mom_rows["momentum_gates"]]),
+        # ms: the fused pass's wrapper call; staged_ms: its staged form's
+        # (stream_mg.cu and mg_vcycle.cu's stages), timed in turns
         dict(name="stream_pass_a", route="cuda",
-             source="sr_for_cfd_tpu_torch/csrc/stream_mg.cu",
+             source="sr_for_cfd_tpu_torch/csrc/stream_pass.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_stream.py:168",
              library_ms=None, **launches("stream_pass_a"), **big_rows["stream_pass_a"],
              gates=[g for g in big_gates if g["gate"].startswith("stream")]),
         dict(name="stream_pass_b", route="cuda",
-             source="sr_for_cfd_tpu_torch/csrc/mg_vcycle.cu",
+             source="sr_for_cfd_tpu_torch/csrc/stream_pass.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_stream.py:332",
              library_ms=None, **launches("stream_pass_b"), **big_rows["stream_pass_b"]),
         dict(name="stream_level1_correction", route="cuda",

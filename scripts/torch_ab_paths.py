@@ -1,6 +1,6 @@
 """The port's six main paths on two trees in one call, for an A/B on one card.
 
-    python3 scripts/torch_ab_paths.py TREE [TREE ...] [--out DIR]
+    python3 scripts/torch_ab_paths.py TREE [TREE ...] [--out DIR] [--paths NAME ...]
 
 Each TREE is the root of a checkout of the repository (for example the
 parent commit and the change unpacked with `git archive`, given in the
@@ -11,7 +11,9 @@ NCCL group and runs the six main paths of that tree's `chip_smoke.py`
 SPMD multigrid) without its gates, so that both trees' paths run on the
 same card in one machine. Each path prints its ms/iter, inner counts and
 launches per step as `chip_smoke.py` does; with --out, each side's log is
-written under DIR too. Needs a CUDA card; exits non-zero if a side fails.
+written under DIR too; --paths runs only the named paths (`chip_smoke.py`'s
+phase functions, e.g. phase_big_grid), so that more sides fit one call.
+Needs a CUDA card; exits non-zero if a side fails.
 """
 
 import argparse
@@ -47,13 +49,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--paths", nargs="+", choices=PATHS, default=list(PATHS))
     args = ap.parse_args()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     for i, tree in enumerate(args.trees):
         root = os.path.abspath(tree)
         print(f"SIDE {i + 1} {tree}", flush=True)
-        run = subprocess.run([sys.executable, "-c", SIDE % (PATHS,)], cwd=root,
+        run = subprocess.run([sys.executable, "-c", SIDE % (tuple(args.paths),)], cwd=root,
                              capture_output=True, text=True, timeout=1200)
         lines = [ln for ln in run.stdout.splitlines() + run.stderr.splitlines()
                  if "ms/iter" in ln or "Error" in ln or "FAIL" in ln]

@@ -63,6 +63,20 @@ __device__ __forceinline__ void srcfd_cp_async4(float* dst, const float* src, bo
                "l"(src), "r"(in ? 4 : 0));
 }
 
+// 8-byte asynchronous copy global -> shared (both 8-byte aligned); `in`
+// false zero-fills
+__device__ __forceinline__ void srcfd_cp_async8(float* dst, const float* src, bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 8 : 0));
+}
+
+// wait until at most N committed groups of this thread are still pending
+template <int N>
+__device__ __forceinline__ void srcfd_cp_async_wait_n() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ void srcfd_cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -1,8 +1,9 @@
 // The level arithmetic of the V-cycle, shared by the stage kernels and the
 // one-block coarse tail (mg_vcycle.cu) and the streamed V-cycle passes
-// (stream_mg.cu). Every caller computes a cell with these expressions in
-// this order, so that (under -fmad=false) the stage kernels and the tail
-// give the same bits whether a level lives in global or shared memory.
+// (stream_mg.cu's staged form, stream_pass.cu's fused one). Every caller
+// computes a cell with these expressions in this order, so that (under
+// -fmad=false) they give the same bits whether a level lives in global
+// memory, shared memory or registers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,6 +13,14 @@
 #define MG_ROW_RESTRICT_2X 1
 #define MG_ROW_PROLONG_2X 2
 #define MG_ROW_COPY 3
+
+// volp-scaled 5-point Laplacian from the cell c and its neighbours at
+// i + 1 (e), i - 1 (w), j + 1 (no) and j - 1 (so)
+__device__ __forceinline__ float mg_lap5(float c, float e, float w, float no,
+                                         float so, float inv_dx2, float inv_dy2,
+                                         float volp) {
+  return volp * ((e - 2.0f * c + w) * inv_dx2 + (no - 2.0f * c + so) * inv_dy2);
+}
 
 // volp-scaled 5-point Laplacian of an interior-shaped (n, m) level with a
 // homogeneous-Dirichlet exterior, at (i, j); m is the contiguous axis
@@ -24,7 +33,7 @@ __device__ __forceinline__ float mg_lap(const float* __restrict__ x, int i,
   const float w = i > 0 ? x[idx - m] : 0.0f;
   const float no = j + 1 < m ? x[idx + 1] : 0.0f;
   const float so = j > 0 ? x[idx - 1] : 0.0f;
-  return volp * ((e - 2.0f * c + w) * inv_dx2 + (no - 2.0f * c + so) * inv_dy2);
+  return mg_lap5(c, e, w, no, so, inv_dx2, inv_dy2, volp);
 }
 
 // r = b - A x at (i, j)

@@ -1,28 +1,24 @@
-// The streamed V-cycle's fine-level passes: pass A (pre-smoothing with the
-// entry residual, residual, restriction) and pass B (prolongation, the
-// correction, post-smoothing).
+// The staged form of the streamed V-cycle's fine-level passes: pass A
+// (pre-smoothing with the entry residual, residual, restriction) and pass
+// B (prolongation, the correction, post-smoothing) as one launch per stage.
 //
-// Replaces the TPU kernels sr_for_cfd_tpu/ops/pallas_stream.py:168
-// (_pass_a_kernel, pallas_call :481) and :332 (_pass_b_kernel, pallas_call
-// :521), built in _make_streamed_cycle :412. On the TPU the fine level of a
-// grid past the VMEM wall streams through VMEM in row slabs with wide halos
-// so that all n_pre (n_post) sweeps run in one pass over HBM; the level-1
-// correction between the passes is the third kernel, _coarse_kernel :298,
-// ported as ops/stream_kernels.py:level1_correction on mg_vcycle.cu.
+// The passes replace the TPU kernels sr_for_cfd_tpu/ops/pallas_stream.py
+// :168 (_pass_a_kernel, pallas_call :481) and :332 (_pass_b_kernel,
+// pallas_call :521). On the card each pass is one launch of stream_pass.cu's
+// fused kernel, whose note gives the passes' bound; this staged form is its
+// bit-equality reference (ops/stream_kernels.py: stream_pass_a_staged,
+// stream_pass_b_staged) and serves an n_pre or n_post past the fused
+// kernel's halo. The level-1 correction between the passes is the TPU's
+// _coarse_kernel :298, ported as ops/stream_kernels.py:level1_correction on
+// mg_vcycle.cu.
 //
-// Bound. A half-sweep reads x and b and writes x: ~12 bytes per cell, 50 MB
-// at 2048x2048, ~15 us at 3.35 TB/s (13 float32 operations per updated
-// cell, ~0.4 us at 67 TFLOP/s), so the passes are bound by device memory:
-// pass A with 4 sweeps and the restriction moves ~0.45 GB, ~0.14 ms.
-//
-// Design. The H100 has no VMEM wall, so there are no slabs and no layout
-// choices (resident, recursive or wide): one launch per stage covers the
-// whole level with one thread per cell (per coarse cell for the
-// restriction). The passes are mg_vcycle.cu's stages on the fine level
-// (in-place red-black half-sweeps x += r * (sor / ap), the reciprocal form
-// of pallas_stream.py:188-189 and :348-349; the banded column restriction;
-// pass B's [0.75, 0.25] row prolongation with edge replication, added to
-// x) plus the two kernels here, which do what those stages do not:
+// Design. One launch per stage covers the whole level with one thread per
+// cell (per coarse cell for the restriction): mg_vcycle.cu's stages on the
+// fine level (in-place red-black half-sweeps x += r * (sor / ap), the
+// reciprocal form of pallas_stream.py:188-189 and :348-349; the banded
+// column restriction; pass B's [0.75, 0.25] row prolongation with edge
+// replication, added to x) plus the two kernels here, which do what those
+// stages do not:
 //   * sm_entry_half: pass A's first (red) half-sweep, out of place (the
 //     black cells are copied), which also writes per-block sums of r^2 over
 //     every interior cell before any update -- the entry residual, which
@@ -33,6 +29,8 @@
 //     the two boundary rows); on a level that keeps its rows, the residual
 //     times the restriction scale.
 // Semi-coarsened levels skip the identity direction, as the plan says.
+// At 2048^2 with n_pre = n_post = 4 pass A is 11 launches and pass B 9,
+// each a trip over the level (~0.45 GB for pass A).
 // No kernel waits on another; the host loop is bounded by max_cycles.
 
 #include "common.cuh"

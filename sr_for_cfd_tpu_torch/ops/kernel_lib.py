@@ -84,6 +84,9 @@ SIGNATURES = {
     "srcfd_shard_rb_params_size": (_I, []),
     "srcfd_shard_rb_init": (_I, []),
     "srcfd_shard_rb_fused": (_I, [_P, _P, _P, _P, _P, _I, _P]),
+    "srcfd_stream_pass_params_size": (_I, []),
+    "srcfd_stream_pass_init": (_I, []),
+    "srcfd_stream_pass": (_I, [_P] * 8),
 }
 
 _lock = threading.Lock()
@@ -166,8 +169,8 @@ def build(force: bool = False, verbose: bool = False) -> float:
 def load_library() -> ctypes.CDLL:
     """The kernel library, built if needed, with argtypes set and the
     dynamic shared memory of the V-cycle tail, of the tiled red-black
-    kernel's fused form and of the fused momentum pass allowed (before any
-    launch or graph capture)."""
+    kernel's fused form, of the fused momentum pass and of the fused
+    streamed passes allowed (before any launch or graph capture)."""
     global _lib
     with _lock:
         if _lib is None:
@@ -180,10 +183,13 @@ def load_library() -> ctypes.CDLL:
             check(lib.srcfd_mg_tail_init(), "mg_tail_init")
             check(lib.srcfd_shard_rb_init(), "shard_rb_init")
             check(lib.srcfd_mom_pass_init(), "mom_pass_init")
-            from . import mom_pass, shard_rb
+            check(lib.srcfd_stream_pass_init(), "stream_pass_init")
+            from . import mom_pass, shard_rb, stream_pass
 
-            for mod, struct, size in ((shard_rb, "ShardRbParams", lib.srcfd_shard_rb_params_size),
-                                      (mom_pass, "MomPassParams", lib.srcfd_mom_pass_params_size)):
+            for mod, struct, size in (
+                    (shard_rb, "ShardRbParams", lib.srcfd_shard_rb_params_size),
+                    (mom_pass, "MomPassParams", lib.srcfd_mom_pass_params_size),
+                    (stream_pass, "StreamPassParams", lib.srcfd_stream_pass_params_size)):
                 if size() != ctypes.sizeof(mod.Params):
                     raise RuntimeError(
                         f"{mod.__name__}'s Params ({ctypes.sizeof(mod.Params)} bytes) "

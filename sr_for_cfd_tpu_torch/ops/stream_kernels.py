@@ -10,9 +10,8 @@ TPU kernel:
   first half-sweep, before any update), then the residual and its
   restriction: the [1,3,3,1] stride-2 row restriction with the per-row
   norms of `_row_restrict_norm` and the restriction scale, then the column
-  restriction. Kernels: `csrc/stream_mg.cu` (the entry half-sweep and
-  the residual with the row restriction) and `csrc/mg_vcycle.cu`'s
-  stages (the other half-sweeps, the column restriction).
+  restriction. Kernel: `csrc/stream_pass.cu`, all of it in one launch
+  (`ops/stream_pass.py`).
 * `level1_correction` (`_coarse_kernel`, :298): one V-cycle from a zero
   guess on levels 1.. of the same hierarchy, then the column prolongation.
   Kernels: `csrc/mg_vcycle.cu`'s (`ops/mg_kernels._Cycle` entered at level
@@ -20,8 +19,14 @@ TPU kernel:
   column prolongation, all replayed as one CUDA graph.
 * `stream_pass_b` (`_pass_b_kernel`, :332): the [0.75, 0.25] row
   prolongation with edge replication added to the fine iterate, then
-  n_post sweeps. Kernels: `csrc/mg_vcycle.cu`'s row transfer and
-  half-sweeps on the fine level.
+  n_post sweeps. Kernel: `csrc/stream_pass.cu`, in one launch.
+
+The staged forms `stream_pass_a_staged` and `stream_pass_b_staged` are the
+passes as stage launches (`csrc/stream_mg.cu`'s entry half-sweep and
+residual with the row restriction, `csrc/mg_vcycle.cu`'s half-sweeps and
+transfers: 11 and 9 launches at n = 4). The fused passes give their bits;
+the card gates hold them to that, and an n past the fused kernel's halo
+(`stream_pass.fits`) runs on them.
 
 The loop exits as the TPU loop does (:753-768): `it < max_cycles and
 best >= tol and not stalled(stale, it)`, where the rms fed to the stall
@@ -46,8 +51,8 @@ The plain versions (`*_plain`) follow the kernels' order of operations, on
 `ops/multigrid.py`'s level operators. On a CPU tensor each wrapper runs its
 plain version; on a CUDA tensor it launches its kernels or raises. The
 `.launches` of `stream_pass_a`, `level1_correction` and `stream_pass_b`
-count their kernels (a replay adds its graph's), `level1_correction.replays`
-its graph launches.
+count their kernels (a replay adds its graph's; a staged form counts on the
+wrapper it serves), `level1_correction.replays` its graph launches.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from . import kernel_lib
+from . import kernel_lib, stream_pass
 from .mg_kernels import (
     ROW_COPY,
     ROW_PROLONG_2X,
@@ -162,6 +167,7 @@ class StreamLevels:
         self._ops: Optional[_Ops] = None
         self._cycle: Optional[_Cycle] = None
         self._partials: Optional[torch.Tensor] = None
+        self._fused = {}
 
     @property
     def ops(self) -> _Ops:
@@ -186,9 +192,17 @@ class StreamLevels:
                                  counter=level1_correction, top=1)
         return self._cycle
 
+    def fused(self, pass_: str) -> stream_pass.FusedPass:
+        """The fused pass A ("a") or B ("b") of this hierarchy, built at
+        first use."""
+        if pass_ not in self._fused:
+            self._fused[pass_] = stream_pass.FusedPass(self, pass_)
+        return self._fused[pass_]
+
     @property
     def partials(self) -> torch.Tensor:
-        """The entry half-sweep's per-block sums (mg_residual's grid)."""
+        """The staged entry half-sweep's per-block sums (mg_residual's
+        grid)."""
         if self._partials is None:
             lib = kernel_lib.load_library()
             n = lib.srcfd_mg_partials(self.nf, self.mf)
@@ -258,14 +272,42 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _check_level(t: torch.Tensor, shape, what: str) -> None:
+    """Raise unless `t` is what the fused passes take: a contiguous float32
+    CUDA array of `shape`, 16-byte aligned."""
+    if t.device.type != "cuda" or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"the fused streamed pass takes {what} as a contiguous, aligned "
+                         f"float32 CUDA array of shape {tuple(shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
 def stream_pass_a(x: torch.Tensor, b: torch.Tensor, lv: StreamLevels):
     """Pass A; returns (x after n_pre sweeps, the level-1 right-hand side,
-    the entry rms as a one-element tensor). Leaves `x` as it was."""
+    the entry rms as a one-element tensor). Leaves `x` as it was. On the
+    card one launch of the fused pass, or the staged form for an n_pre past
+    its halo."""
     if x.device.type == "cpu":
         return stream_pass_a_plain(x, b, lv)
+    if not stream_pass.fits("a", lv.n_pre):
+        return stream_pass_a_staged(x, b, lv)
+    for t, what in ((x, "x"), (b, "b")):
+        _check_level(t, (lv.nf, lv.mf), what)
+    fused = lv.fused("a")
+    y = torch.empty_like(x)
+    b1 = torch.empty(fused.out_shape, dtype=torch.float32, device=x.device)
+    rms = torch.empty(1, dtype=torch.float32, device=x.device)
+    launch(stream_pass_a, fused(x, y, b, b1=b1, rms=rms), "stream_pass_a")
+    return y, b1, rms
+
+
+def stream_pass_a_staged(x: torch.Tensor, b: torch.Tensor, lv: StreamLevels,
+                         counter=None):
+    """Pass A as stage launches (the fused pass's bit-equality reference);
+    the launches count on `counter` (default `stream_pass_a`)."""
     lib = kernel_lib.load_library()
     stream = kernel_lib.stream_ptr(x.device)
-    count = stream_pass_a
+    count = counter or stream_pass_a
     part = lv.partials
     n, m = lv.nf, lv.mf
     y = torch.empty_like(x)
@@ -310,17 +352,35 @@ def level1_correction(b1: torch.Tensor, lv: StreamLevels) -> torch.Tensor:
 
 def stream_pass_b(x: torch.Tensor, b: torch.Tensor, e: torch.Tensor,
                   lv: StreamLevels) -> torch.Tensor:
-    """Pass B: x + the row-prolonged correction, then n_post sweeps; on the
-    card `x` is updated in place and returned."""
+    """Pass B: x + the row-prolonged correction, then n_post sweeps. On the
+    card one launch of the fused pass into a new array (`x` is left as it
+    was), or the staged form for an n_post past its halo, which updates `x`
+    in place and returns it."""
     if x.device.type == "cpu":
         return stream_pass_b_plain(x, b, e, lv)
+    if not stream_pass.fits("b", lv.n_post):
+        return stream_pass_b_staged(x, b, e, lv)
+    for t, what, shape in ((x, "x", (lv.nf, lv.mf)), (b, "b", (lv.nf, lv.mf)),
+                           (e, "e", (lv.nc if lv.coarsen_x else lv.nf, lv.mf))):
+        _check_level(t, shape, what)
+    y = torch.empty_like(x)
+    launch(stream_pass_b, lv.fused("b")(x, y, b, e=e), "stream_pass_b")
+    return y
+
+
+def stream_pass_b_staged(x: torch.Tensor, b: torch.Tensor, e: torch.Tensor,
+                         lv: StreamLevels, counter=None) -> torch.Tensor:
+    """Pass B as stage launches (the fused pass's bit-equality reference):
+    `x` updated in place and returned; the launches count on `counter`
+    (default `stream_pass_b`)."""
     lib = kernel_lib.load_library()
     stream = kernel_lib.stream_ptr(x.device)
+    count = counter or stream_pass_b
     mode = ROW_PROLONG_2X if lv.coarsen_x else ROW_COPY
-    launch(stream_pass_b, lib.srcfd_mg_row_transfer(
+    launch(count, lib.srcfd_mg_row_transfer(
         _ptr(e), _ptr(x), e.shape[0], lv.nf, lv.mf, mode, None, None, None,
         1.0, 1, stream), "mg_row_transfer")
-    smooth_halves(lib, stream, stream_pass_b, _ptr(x), _ptr(b), lv.nf, lv.mf,
+    smooth_halves(lib, stream, count, _ptr(x), _ptr(b), lv.nf, lv.mf,
                   *lv.lap_coef, lv.inv_ap, lv.n_post)
     return x
 

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from sr_for_cfd_tpu_torch.ops.mg_kernels import mg_solve_pressure_kernel
+from sr_for_cfd_tpu_torch.ops.mg_kernels import _Tally, mg_solve_pressure_kernel
 from sr_for_cfd_tpu_torch.ops.multigrid import mg_solve_pressure
 from sr_for_cfd_tpu_torch.ops.pressure_kernels import (
     solve_pressure_kernel,
@@ -856,3 +856,146 @@ def test_momentum_loop_cache_survives_turnover(card):
         torch.cuda.synchronize()
         assert n == n_ref and torch.equal(out, ref), (nx, ny)
     assert mom_pass.cached_loop.cache_info().currsize == mom_pass.cached_loop.cache_info().maxsize
+
+
+def _stream_level(nx, ny, lx, ly, n, seed, device):
+    """A streamed hierarchy with n_pre = n_post = n and seeded x, b and the
+    level-1 correction e."""
+    from sr_for_cfd_tpu_torch.ops import stream_kernels as sk
+
+    lv = sk.StreamLevels(nx, ny, lx / nx, ly / ny, (lx / nx) * (ly / ny), device,
+                         n_pre=n, n_post=n)
+    g = np.random.default_rng(seed)
+
+    def field(rows):
+        return torch.tensor(g.standard_normal((rows, lv.mf)), dtype=torch.float32,
+                            device=device)
+
+    return lv, field(lv.nf), field(lv.nf), field(lv.nc if lv.coarsen_x else lv.nf)
+
+
+# (nx, ny, lx, ly, coarsen_x, coarsen_y): the big grid, the 48^2 forced-slab
+# cavity's, a semi-coarsened hierarchy each way, a ragged level (sides
+# multiples of neither the 32-row strip nor the 96-column strip, nor 32)
+STREAM_SHAPES = [(2048, 2048, 1.0, 1.0, True, True), (48, 48, 1.0, 1.0, True, True),
+                 (1024, 1024, 10.0, 3.0, False, True), (1024, 1024, 3.0, 10.0, True, False),
+                 (1030, 1542, 1.0, 1.0, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("shape", STREAM_SHAPES, ids=lambda s: "%dx%d_%g_%g" % s[:4])
+def test_stream_fused_passes_match_staged(card, shape, n):
+    """Each fused pass in one launch, bit-equal to its staged form: pass A's
+    x, level-1 right-hand side and entry rms, pass B's x."""
+    from sr_for_cfd_tpu_torch.ops import stream_kernels as sk
+
+    nx, ny, lx, ly, cx, cy = shape
+    lv, x, b, e = _stream_level(nx, ny, lx, ly, n, nx + ny + n, card)
+    assert (lv.coarsen_x, lv.coarsen_y) == (cx, cy)
+    before = (sk.stream_pass_a.launches, sk.stream_pass_b.launches)
+    ya, b1, rms = sk.stream_pass_a(x, b, lv)
+    yb = sk.stream_pass_b(x, b, e, lv)
+    assert (sk.stream_pass_a.launches - before[0], sk.stream_pass_b.launches - before[1]) \
+        == (1, 1)
+    sa = sk.stream_pass_a_staged(x, b, lv, counter=_Tally())
+    sb = sk.stream_pass_b_staged(x.clone(), b, e, lv, counter=_Tally())
+    torch.cuda.synchronize()
+    assert torch.equal(ya, sa[0]) and torch.equal(b1, sa[1]) and torch.equal(rms, sa[2])
+    assert torch.equal(yb, sb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pass_", ["a", "b"])
+def test_stream_pass_past_the_fused_budget(card, pass_):
+    """The first n past the fused kernel's halo (8 for pass A, 9 for pass
+    B) runs on the staged form: 2n + 3 and 2n + 1 launches, its bits, and
+    within 2e-5 of the plain version."""
+    from sr_for_cfd_tpu_torch.ops import stream_kernels as sk
+
+    n = 8 if pass_ == "a" else 9
+    lv, x, b, e = _stream_level(96, 80, 1.0, 1.0, n, 17, card)
+    counter = sk.stream_pass_a if pass_ == "a" else sk.stream_pass_b
+    before = counter.launches
+    if pass_ == "a":
+        out = sk.stream_pass_a(x, b, lv)
+        ref = sk.stream_pass_a_staged(x, b, lv, counter=_Tally())
+        plain = sk.stream_pass_a_plain(x, b, lv)
+    else:
+        out = (sk.stream_pass_b(x.clone(), b, e, lv),)
+        ref = (sk.stream_pass_b_staged(x.clone(), b, e, lv, counter=_Tally()),)
+        plain = (sk.stream_pass_b_plain(x, b, e, lv),)
+    assert counter.launches - before == 2 * n + (3 if pass_ == "a" else 1)
+    for o, r, p in zip(out, ref, plain):
+        assert torch.equal(o, r)
+        _close(o, p.reshape(o.shape))
+
+
+@pytest.mark.cuda
+def test_stream_fused_survives_parameter_cache_turnover(card):
+    """More streamed settings than `stream_levels` caches (each with its
+    fused passes' parameter blocks), then the first again after the cache
+    let it go and the memory was reused: every call bit-equal to the staged
+    form."""
+    import gc
+
+    from sr_for_cfd_tpu_torch.ops import stream_kernels as sk
+
+    sizes = [(40 + 2 * i, 36 + 4 * i) for i in range(sk.stream_levels.cache_info().maxsize + 3)]
+
+    def run(nx, ny):
+        lv = sk.stream_levels(nx, ny, 1.0 / nx, 1.0 / ny, 1.0 / (nx * ny), str(card), 4, 4,
+                              sk.MG_SMOOTHER_SOR, 8, 40)
+        g = np.random.default_rng(nx * ny)
+        x, b = (torch.tensor(g.standard_normal((nx, ny)), dtype=torch.float32, device=card)
+                for _ in range(2))
+        out = sk.stream_pass_a(x, b, lv)
+        ref = sk.stream_pass_a_staged(x, b, lv, counter=_Tally())
+        return out, ref
+
+    first = run(*sizes[0])
+    for s in sizes[1:]:
+        run(*s)
+    gc.collect()
+    junk = [torch.full((4096,), 7.0, device=card) for _ in range(64)]
+    again = run(*sizes[0])
+    torch.cuda.synchronize()
+    for out, ref in (first, again):
+        assert all(torch.equal(o, r) for o, r in zip(out, ref))
+    assert all(torch.equal(o, r) for o, r in zip(first[0], again[0]))
+    del junk
+
+
+@pytest.mark.cuda
+def test_stream_fused_refuses_a_plan_that_is_not_its_own(card):
+    """A parameter block the C entry does not take (shared memory that is not
+    its plan's, an n past its halo) is refused at the launch."""
+    from sr_for_cfd_tpu_torch.ops import kernel_lib
+    from sr_for_cfd_tpu_torch.ops import stream_pass as sp
+
+    lv, x, b, e = _stream_level(64, 64, 1.0, 1.0, 2, 3, card)
+    fused = sp.FusedPass(lv, "b")
+    y = torch.empty_like(x)
+    assert fused(x, y, b, e=e) == 0
+    for field, value in (("smem", fused.params.smem + 16), ("n", sp.MAX_N["b"] + 1)):
+        old = getattr(fused.params, field)
+        setattr(fused.params, field, value)
+        code = fused(x, y, b, e=e)
+        setattr(fused.params, field, old)
+        assert code != 0
+        with pytest.raises(RuntimeError):
+            kernel_lib.check(code, "stream_pass")
+
+
+@pytest.mark.cuda
+def test_stream_wrappers_raise_on_what_the_fused_passes_do_not_take(card):
+    from sr_for_cfd_tpu_torch.ops import stream_kernels as sk
+
+    lv, x, b, e = _stream_level(64, 64, 1.0, 1.0, 2, 4, card)
+    wide = torch.zeros((64, 66), dtype=torch.float32, device=card)
+    with pytest.raises(ValueError):
+        sk.stream_pass_a(wide[:, :64], b, lv)  # not contiguous
+    with pytest.raises(ValueError):
+        sk.stream_pass_b(x, b.double(), e, lv)
+    with pytest.raises(ValueError):
+        sk.stream_pass_b(x, b, e[:-2].contiguous(), lv)
