@@ -11,7 +11,12 @@ no result line:
    all started together (ptxas report printed), link and load the library.
 2. kernels: each CUDA kernel against its plain PyTorch version on the same
    seeded inputs on the card: the red-black SOR pressure loop at 12x12 (the
-   hybrid's coarse grid) and 402x402 (max_iter 64), the V-cycle loop at
+   hybrid's coarse grid, the one-warp route) and 402x402 (the two-launch
+   route; max_iter 64), the one-warp kernel also bit-equal (field, count,
+   rms) to the single-block loop it replaced in both update modes at 64
+   sweeps and on a solve the stall policy ends, both calls and both C
+   entries alone timed in turns (new, old, old, new), device kernels per
+   call counted with torch.profiler; the V-cycle loop at
    400x400 with the BFS spacing (3 cycles), and the whole-step kernel in
    five gates: design (a) on the BFS 10x10 coarse settings (K=500) and a
    16x16 QUICK cavity (K=4), design (b) forced on a 64x64 QUICK cavity,
@@ -74,7 +79,10 @@ no result line:
 3. non-fused main path: `run_hybrid_experiment` for the BFS Re=400 hybrid
    at full width with `use_pallas=True, fused_step=False` (10x10 coarse on
    the SOR kernel, the shipped 10->400 autoencoder, warm and cold 400x400
-   fine solves on the V-cycle kernel), budgets 500 / 50 / 50.
+   fine solves on the V-cycle kernel), budgets 500 / 50 / 50. Every SOR
+   call must take the one-warp route; the histogram of its sweeps per call
+   is printed, and row 1 is timed again (call and C entry, in turns) at
+   the mean count, from which its Lost is worked out.
 4. fused main path: the JAX demos' `bfs_north_star` configuration
    (`scripts/run_demos.py:65-98, 187-208, 233-263`): fused coarse phase,
    500 steps per launch, design (a); fused fine phases in multigrid mode,
@@ -473,6 +481,168 @@ def cycle_forms(name, cyc, run, ref, reads, copies, reps):
     return numbers
 
 
+def device_kernels_per_call(fn, calls=5):
+    """Device kernels per call of fn() in a torch.profiler trace (memory
+    copies and memsets not counted) and their names; (None, []) where the
+    trace holds no device event at all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None, []
+    kernels = [n for n in dev if "Memcpy" not in n and "Memset" not in n]
+    return len(kernels) / calls, sorted(set(kernels))
+
+
+def row1_entries(lib, p, ff, geo, sweeps):
+    """Launches of row 1's one-warp kernel and of the single-block loop it
+    replaced, each C entry alone on buffers made here (the old loop's b
+    built once, its field solved on in place), tol 0 and no stall exit:
+    `sweeps` sweeps each."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops import kernel_lib
+    from sr_for_cfd_tpu_torch.ops.pressure_kernels import (
+        Params,
+        _coefficients,
+        _padded_rhs,
+    )
+    from sr_for_cfd_tpu_torch.ops.sweeps import (
+        STALL_MIN_CHECKS,
+        STALL_RATIO,
+        STALL_RESET_RATIO,
+    )
+
+    nx2, ny2 = p.shape
+    dx2, dy2, sor, inv_ap, ap_d = _coefficients(geo["dx"], geo["dy"], geo["volp"], 1.0,
+                                                nx2 - 2, ny2 - 2)
+    coef = (dx2, dy2, geo["volp"], sor, inv_ap, ap_d, 0)
+    stall = (STALL_RESET_RATIO, STALL_RATIO, 1 << 30, STALL_MIN_CHECKS)
+    prm = Params(nx2, ny2, *coef, *stall, geo["rho"] / geo["dt"], 0.0, sweeps, 8)
+    out, buf = torch.empty_like(p), p.clone()
+    b = _padded_rhs(p, ff, geo["rho"], geo["dt"])
+    state = torch.empty(2, dtype=torch.int32, device=p.device)
+    stream = kernel_lib.stream_ptr(p.device)
+    ptrs = [t.data_ptr() for t in (p, out, *ff, state)]
+
+    def new():
+        kernel_lib.check(lib.srcfd_rb_sor_warp(ctypes.addressof(prm), *ptrs, stream),
+                         "rb_sor_warp")
+
+    def old():
+        kernel_lib.check(lib.srcfd_rb_sor_loop_small(
+            buf.data_ptr(), b.data_ptr(), nx2, ny2, *coef, *stall, 0.0, sweeps, 8,
+            state.data_ptr(), state.data_ptr() + 4, stream), "rb_sor_loop_small")
+
+    return new, old
+
+
+def row1_turns(p, ff, geo, sweeps, reps=50):
+    """Row 1 at `sweeps` sweeps (tol 0): the wrapper's call (the one-warp
+    route) and the old call (the single-block loop with b built and p
+    copied on the host, its count read from device memory:
+    card_solve(_kernel="block")), then each C entry alone, each pair in
+    turns (new, old, old, new; CUDA events over `reps` calls)."""
+    from sr_for_cfd_tpu_torch.ops import kernel_lib
+    from sr_for_cfd_tpu_torch.ops.pressure_kernels import (
+        card_solve,
+        solve_pressure_kernel,
+    )
+
+    kw = dict(geo, tol=0.0, max_iter=sweeps, check_every=8, sor=1.0)
+
+    def call():
+        return solve_pressure_kernel(p, ff, **kw)
+
+    def old_call():
+        return card_solve(p, ff, **kw, _kernel="block")
+
+    entry, old_entry = row1_entries(kernel_lib.load_library(), p, ff, geo, sweeps)
+    n = call()[1]
+    t = [cuda_ms(call, reps), cuda_ms(old_call, reps), cuda_ms(old_call, reps),
+         cuda_ms(call, reps)]
+    e = [cuda_ms(entry, reps), cuda_ms(old_entry, reps), cuda_ms(old_entry, reps),
+         cuda_ms(entry, reps)]
+    log(f"  rb_sor_pressure 12x12, {sweeps} sweeps ({n} run), in turns: the call {t[0]:.5f} / "
+        f"{t[3]:.5f} ms (old {t[1]:.5f} / {t[2]:.5f}); the C entry alone {e[0]:.5f} / "
+        f"{e[3]:.5f} ms (old {e[1]:.5f} / {e[2]:.5f})")
+    return dict(ms=(t[0] + t[3]) / 2, old_ms=(t[1] + t[2]) / 2, turns_ms=t, sweeps_run=n,
+                entry_ms=(e[0] + e[3]) / 2, old_entry_ms=(e[1] + e[2]) / 2,
+                entry_turns_ms=e)
+
+
+def row1_forms(p, ff, geo):
+    """Row 1's one-warp kernel against the single-block loop it replaces
+    on the hybrid's 12x12 coarse problem: field, count and rms bit-equal in
+    both update modes at 64 sweeps and on a solve the stall policy ends
+    (tol 1e-6, max_iter 1000); both calls and both C entries timed in
+    turns at 64 sweeps; device kernels per call of each (torch.profiler)."""
+    import numpy as np
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops.pressure_kernels import (
+        card_solve,
+        solve_pressure_kernel,
+    )
+
+    gates = []
+    for divide in (False, True):
+        for label, stop in (("64 sweeps", dict(tol=0.0, max_iter=64)),
+                            ("stall", dict(tol=1e-6, max_iter=1000))):
+            name = f"rb_sor_pressure 12x12 {label}{' divide' if divide else ''}"
+            kw = dict(geo, check_every=8, sor=1.0, divide=divide, **stop)
+            out, n, rms = card_solve(p, ff, **kw, _kernel="warp")
+            ref, n_ref, rms_ref = card_solve(p, ff, **kw, _kernel="block")
+            torch.cuda.synchronize()
+            bit = (torch.equal(out.view(torch.int32), ref.view(torch.int32)) and n == n_ref
+                   and np.float32(rms).tobytes() == np.float32(rms_ref).tobytes())
+            log(f"  {name}: warp kernel bit-equal to the block loop {bit} (counts {n} / "
+                f"{n_ref}, rms {rms!r} / {rms_ref!r})")
+            if not bit:
+                fail(f"{name}: the one-warp kernel differs from the single-block loop")
+            if label == "stall" and not (n < stop["max_iter"] and rms >= np.float32(1e-6)):
+                fail(f"{name}: the solve did not end on a stall")
+            gates.append(dict(gate=name, counts=n, rms=rms, bit_equal=True))
+    turns = row1_turns(p, ff, geo, 64)
+    kw = dict(geo, tol=0.0, max_iter=64, check_every=8, sor=1.0)
+    per_call, names = device_kernels_per_call(lambda: solve_pressure_kernel(p, ff, **kw))
+    old_per_call, old_names = device_kernels_per_call(
+        lambda: card_solve(p, ff, **kw, _kernel="block"))
+    log(f"  rb_sor_pressure 12x12: device kernels per call {per_call} {names} (old "
+        f"{old_per_call}: {old_names})")
+    if per_call is None:
+        fail("the profiler traced no device kernel of the one-warp route")
+    if per_call != 1:
+        fail("the one-warp route ran another kernel than its own")
+    return dict(turns, gates=gates, device_kernels_per_call=per_call,
+                old_device_kernels_per_call=old_per_call)
+
+
+def row1_at_main_count(device, sweeps):
+    """Row 1 at the non-fused coarse phase's mean sweeps per call (a
+    multiple of 8), on phase_kernels' 12x12 problem: the calls and C
+    entries in turns, and the bound at that count."""
+    import numpy as np
+
+    p, ff, geo = seeded_problem(np.random.default_rng(1234), 10, 10, 10.0, 3.0, device)
+    turns = row1_turns(p, ff, geo, sweeps)
+    b_ms, b_by = bound_ms(*rb_sor_work(10, 10, sweeps, 8))
+    return dict(main_sweeps=sweeps, main_ms=turns["ms"], main_old_ms=turns["old_ms"],
+                main_entry_ms=turns["entry_ms"], main_old_entry_ms=turns["old_entry_ms"],
+                main_bound_ms=b_ms, main_bound_by=b_by)
+
+
 def phase_kernels(device):
     import numpy as np
     import torch
@@ -490,11 +660,13 @@ def phase_kernels(device):
     )
 
     rng = np.random.default_rng(1234)
-    results = {}
-    # red-black SOR: the hybrid's coarse grid (10x10 interior, BFS domain)
-    # and a 402x402 padded field (the multi-block path); fixed 64 sweeps
+    results, problems = {}, {}
+    # red-black SOR: the hybrid's coarse grid (10x10 interior, BFS domain;
+    # the one-warp route) and a 402x402 padded field (the two-launch
+    # route); fixed 64 sweeps
     for label, n in (("12x12", 10), ("402x402", 400)):
         p, ff, geo = seeded_problem(rng, n, n, 10.0, 3.0, device)
+        problems[label] = (p, ff, geo)
         kw = dict(geo, tol=0.0, max_iter=64, check_every=8, sor=1.0)
         out_k, n_k = solve_pressure_kernel(p, ff, **kw)
         out_p, n_p = solve_pressure_plain(p, ff, **kw)
@@ -511,6 +683,7 @@ def phase_kernels(device):
                               launches_per_call=launches_per_call(
                                   lambda: solve_pressure_kernel(p, ff, **kw),
                                   solve_pressure_kernel))
+    results["12x12"].update(row1_forms(*problems["12x12"]))
     # V-cycle: the fine grid of the hybrid, 400x400 on the 10x3 BFS domain
     p, ff, geo = seeded_problem(rng, 400, 400, 10.0, 3.0, device)
     kw = dict(geo, tol=1e-30, max_cycles=3)
@@ -1270,6 +1443,7 @@ def reset_counters():
                tiled_solve_momentum, sk.stream_pass_a, sk.level1_correction,
                sk.stream_pass_b, tiled_solve_pressure, shard_rb_sweep):
         fn.launches = 0
+    solve_pressure_kernel.routes = dict.fromkeys(solve_pressure_kernel.routes, 0)
     mg_solve_pressure_kernel.replays = sk.level1_correction.replays = 0
     tiled_solve_pressure.reads = tiled_solve_pressure.sweeps = 0
     tiled_solve_momentum.reads = tiled_solve_momentum.sweeps = 0
@@ -1346,16 +1520,55 @@ def run_path(name, device, budgets, kw, coarse):
     return res, totals
 
 
+class Row1Counts:
+    """Records the sweeps of every SOR solve on the card while it is
+    entered (a wrapper around pressure_kernels.card_solve; no launch of
+    its own)."""
+
+    def __enter__(self):
+        from sr_for_cfd_tpu_torch.ops import pressure_kernels as pk
+
+        self.calls, self.solve = [], pk.card_solve
+        calls, solve = self.calls, self.solve
+
+        def counted(*a, **k):
+            out = solve(*a, **k)
+            calls.append(out[1])
+            return out
+
+        pk.card_solve = counted
+        return self
+
+    def __exit__(self, *exc):
+        from sr_for_cfd_tpu_torch.ops import pressure_kernels as pk
+
+        pk.card_solve = self.solve
+
+
 def phase_non_fused(device):
-    res, totals = run_path("non-fused", device, (500, 50, 50), NON_FUSED,
-                           NON_FUSED_COARSE)
+    from collections import Counter
+
+    with Row1Counts() as row1:
+        res, totals = run_path("non-fused", device, (500, 50, 50), NON_FUSED,
+                               NON_FUSED_COARSE)
     launches = res["kernel_launches"]
-    if launches["coarse"]["rb_sor_pressure"] <= 0:
+    coarse = launches["coarse"]
+    if coarse["rb_sor_pressure"] <= 0:
         fail("the SOR kernel did not launch in the coarse phase")
+    sweeps = row1.calls
+    log(f"  non-fused coarse: row 1 calls by route warp {coarse['rb_sor_warp_calls']}, block "
+        f"{coarse['rb_sor_block_calls']}, two-launch {coarse['rb_sor_two_launch_calls']}; "
+        f"launches {coarse['rb_sor_pressure']}; sweeps per call mean "
+        f"{sum(sweeps) / max(1, len(sweeps))} min {min(sweeps, default=0)} max "
+        f"{max(sweeps, default=0)}: {dict(sorted(Counter(sweeps).items()))}")
+    if not (coarse["rb_sor_warp_calls"] == coarse["rb_sor_pressure"] == len(sweeps)
+            == totals["rb_sor_pressure"]):
+        fail("a row 1 call of the non-fused path did not take the one-warp route")
     if launches["ml"]["mg_vcycle_pressure"] <= 0 or \
             launches["normal"]["mg_vcycle_pressure"] <= 0:
         fail("the V-cycle kernel did not launch in a fine phase")
-    return totals
+    return dict(totals, rb_sor_sweeps=sum(sweeps), rb_sor_sweeps_min=min(sweeps),
+                rb_sor_sweeps_max=max(sweeps))
 
 
 class SolveCounts:
@@ -2064,6 +2277,13 @@ def main():
         log(f"phase {name} main path: {time.perf_counter() - t:.1f} s, "
             f"launches {by_path[name]}")
 
+    non_fused = by_path["non_fused"]
+    mean = non_fused["rb_sor_sweeps"] / non_fused["rb_sor_pressure"]
+    row1_main = row1_at_main_count(device, 8 * max(1, round(mean / 8)))
+    row1_main.update(main_sweeps_per_call=mean,
+                     main_sweeps_min=non_fused["rb_sor_sweeps_min"],
+                     main_sweeps_max=non_fused["rb_sor_sweeps_max"])
+
     t = time.perf_counter()
     phase_reference(device)
     spmd_reference(device)
@@ -2081,7 +2301,9 @@ def main():
         dict(name="rb_sor_pressure", route="cuda",
              source="sr_for_cfd_tpu_torch/csrc/rb_sor.cu",
              replaces="sr_for_cfd_tpu/ops/pallas_kernels.py:136",
-             library_ms=None, **launches("rb_sor_pressure"), **kernels["12x12"]),
+             library_ms=None, **launches("rb_sor_pressure"),
+             warp_calls=launches("rb_sor_warp_calls")["launches"], **kernels["12x12"],
+             **row1_main),
         # launches: kernels run (a replay counts its graph's kernels);
         # replays: graph launches
         dict(name="mg_vcycle_pressure", route="cuda",
@@ -2143,6 +2365,10 @@ def main():
     for row in rows:
         row["calls"] = row["launches"] / row["launches_per_call"]
         row["lost_s"] = row["calls"] * (row["ms"] - row["bound_ms"]) / 1e3
+    # row 1: Lost at the main path's sweeps per call (the gate's 64 is a
+    # third of them)
+    row1 = rows[0]
+    row1["lost_s"] = row1["calls"] * (row1["main_ms"] - row1["main_bound_ms"]) / 1e3
     # row 3's own time: its call less the V-cycles (row 2's graph replays)
     # inside it, each at one row 2 cycle's call time from this run; its
     # calls counted, as a gate call's launches (its solves' no-op launches

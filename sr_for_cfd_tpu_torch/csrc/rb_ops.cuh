@@ -1,10 +1,10 @@
 // Device code shared by the red-black SOR pressure kernels: the residual and
 // the update of one cell, and the unified stall policy of their loops.
-// rb_sor.cu (the in-place half-sweeps and the single-block loop) and
-// shard_rb.cu (the tiled red-black kernel of the tiled and the
-// row-decomposed solvers) call the same expressions, so they cannot drift
-// apart. The loop state of a device-exit loop and its step are shared with
-// mom_pass.cu (the fused momentum pass).
+// rb_sor.cu (the in-place half-sweeps, the single-block loop and the
+// one-warp loop) and shard_rb.cu (the tiled red-black kernel of the tiled
+// and the row-decomposed solvers) call the same expressions, so they
+// cannot drift apart. The loop state of a device-exit loop and its step
+// are shared with mom_pass.cu (the fused momentum pass).
 #pragma once
 
 #include <math.h>
@@ -23,21 +23,38 @@ struct RbCoef {
   int mode;
 };
 
-__device__ __forceinline__ float rb_step(float r, const RbCoef& c) {
-  if (c.mode == 1) return (c.sor * r) / c.ap_d;
-  if (c.mode == 2) return r * c.inv_ap;
+template <int MODE>
+__device__ __forceinline__ float rb_step_mode(float r, const RbCoef& c) {
+  if (MODE == 1) return (c.sor * r) / c.ap_d;
+  if (MODE == 2) return r * c.inv_ap;
   return c.sor * r * c.inv_ap;
 }
 
-// residual b - Fd at index idx of row-major arrays p and b that share the
+// rb_step_mode by c.mode (a branch a call; the one-warp loop of rb_sor.cu
+// takes the mode as a template argument, so that a half-sweep has none)
+__device__ __forceinline__ float rb_step(float r, const RbCoef& c) {
+  if (c.mode == 1) return rb_step_mode<1>(r, c);
+  if (c.mode == 2) return rb_step_mode<2>(r, c);
+  return rb_step_mode<0>(r, c);
+}
+
+// residual b - Fd of a cell of value f whose neighbours are f_e (i + 1),
+// f_w (i - 1), f_n (j + 1) and f_s (j - 1)
+__device__ __forceinline__ float rb_residual_v(float f, float f_e, float f_w,
+                                               float f_n, float f_s, float b,
+                                               const RbCoef& c) {
+  const float fd = c.volp * ((f_e - 2.0f * f + f_w) * c.inv_dx2 +
+                             (f_n - 2.0f * f + f_s) * c.inv_dy2);
+  return b - fd;
+}
+
+// rb_residual_v at index idx of row-major arrays p and b that share the
 // row stride ny2
 __device__ __forceinline__ float rb_residual(const float* p, const float* b,
                                              int idx, int ny2,
                                              const RbCoef& c) {
-  const float f = p[idx];
-  const float fd = c.volp * ((p[idx + ny2] - 2.0f * f + p[idx - ny2]) * c.inv_dx2 +
-                             (p[idx + 1] - 2.0f * f + p[idx - 1]) * c.inv_dy2);
-  return b[idx] - fd;
+  return rb_residual_v(p[idx], p[idx + ny2], p[idx - ny2], p[idx + 1],
+                       p[idx - 1], b[idx], c);
 }
 
 // The unified stall policy (ops/sweeps.py: stall_update / stalled); its

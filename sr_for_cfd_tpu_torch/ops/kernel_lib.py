@@ -45,6 +45,9 @@ SIGNATURES = {
     "srcfd_rb_sor_loop_small": (_I, [_P, _P, _I, _I, _F, _F, _F, _F, _F,
                                      _F, _I, _F, _F, _I, _I, _F, _I, _I,
                                      _P, _P, _P]),
+    "srcfd_stream_sync": (_I, [_P]),
+    "srcfd_rb_warp_params_size": (_I, []),
+    "srcfd_rb_sor_warp": (_I, [_P] * 9),
     "srcfd_mg_partials": (_I, [_I, _I]),
     "srcfd_mg_smooth_half": (_I, [_P, _P, _I, _I, _F, _F, _F, _F, _I, _P]),
     "srcfd_mg_residual": (_I, [_P, _P, _P, _P, _I, _I, _F, _F, _F, _P]),
@@ -184,9 +187,10 @@ def load_library() -> ctypes.CDLL:
             check(lib.srcfd_shard_rb_init(), "shard_rb_init")
             check(lib.srcfd_mom_pass_init(), "mom_pass_init")
             check(lib.srcfd_stream_pass_init(), "stream_pass_init")
-            from . import mom_pass, shard_rb, stream_pass
+            from . import mom_pass, pressure_kernels, shard_rb, stream_pass
 
             for mod, struct, size in (
+                    (pressure_kernels, "RbWarpParams", lib.srcfd_rb_warp_params_size),
                     (shard_rb, "ShardRbParams", lib.srcfd_shard_rb_params_size),
                     (mom_pass, "MomPassParams", lib.srcfd_mom_pass_params_size),
                     (stream_pass, "StreamPassParams", lib.srcfd_stream_pass_params_size)):
@@ -205,21 +209,33 @@ def check(code: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The current stream of `device` as a pointer (without making a
+    torch.cuda.Stream, which costs a few microseconds a call)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
-def check_field(p, kernel: str) -> None:
+def check_field(p, kernel: str, shape=None) -> None:
     """Raise unless `p` is what the pressure kernels take: a contiguous
-    float32 (nx+2, ny+2) field on a CUDA device."""
+    float32 (nx+2, ny+2) field on a CUDA device, or of exactly `shape`
+    where one is given."""
     import torch
 
+    if (p.is_cuda and p.dtype is torch.float32 and p.is_contiguous()
+            and (p.dim() == 2 and min(p.shape) >= 3 if shape is None else p.shape == shape)):
+        return  # the common case, in a few attribute reads
     if p.device.type != "cuda":
         raise ValueError(f"expected a CUDA tensor, got {p.device}")
     if p.dtype != torch.float32:
         raise ValueError(f"the {kernel} kernel is float32-only, got {p.dtype}")
-    if p.dim() != 2 or min(p.shape) < 3:
+    if shape is not None:
+        if tuple(p.shape) != tuple(shape):
+            raise ValueError(f"the {kernel} kernel takes a {tuple(shape)} tensor, "
+                             f"got {tuple(p.shape)}")
+    elif p.dim() != 2 or min(p.shape) < 3:
         raise ValueError(f"expected a padded (nx+2, ny+2) field, got {tuple(p.shape)}")
     if not p.is_contiguous():
         raise ValueError(f"the {kernel} kernel takes a contiguous (row-major) "

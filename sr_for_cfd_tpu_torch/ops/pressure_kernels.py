@@ -14,12 +14,26 @@ floor, where the stall policy decides, it takes the TPU kernel's exits.
 `divide=True` updates with (sor r) / ap_d instead, as the point-iteration
 pressure stage of the TPU's fused step does (`pallas_step.py:309`); the
 fused step's staged design uses it.
-On a CUDA tensor the wrapper launches the kernel or raises.
-`solve_pressure_kernel.launches` counts kernel launches.
+On a CUDA tensor the wrapper launches the kernel or raises. Which kernel
+is a routing by size of the padded (nx+2, ny+2) field (`route`):
+- "warp": at most `WARP_MAX` rows and columns (the hybrid's 10x10 and
+  20x20 coarse grids): one launch of a one-warp loop that builds its own
+  right-hand side from the four face fluxes, so the call runs no other
+  kernel; it keeps the "block" loop's bits (field, count, rms);
+- "block": up to `srcfd_rb_small_max_cells()` cells: one launch of a
+  single-block loop, b built and p copied here first;
+- "two_launch": larger: a launch per half-sweep and one per check, the
+  stall policy on the host.
+`card_solve` is the wrapper past the CPU check; it also returns the last
+rms. `solve_pressure_kernel.launches` counts kernel launches and
+`solve_pressure_kernel.routes` the calls of each route that launched
+(each at its first checked launch).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -48,6 +62,18 @@ def _coefficients(dx, dy, volp, sor, nx, ny):
     return inv_dx2, inv_dy2, sor, 1.0 / ap_d, ap_d
 
 
+def rhs(ff: FaceFluxes, rho, dt) -> torch.Tensor:
+    """b = rho/dt sum(Ff) on the interior, as every path of this module
+    rounds it: ((e + n) + w) + s, times rho / dt rounded to their type."""
+    return (rho / dt) * ff.divergence_sum()
+
+
+def _padded_rhs(p: torch.Tensor, ff: FaceFluxes, rho, dt) -> torch.Tensor:
+    b = torch.zeros_like(p)
+    b[1:-1, 1:-1] = rhs(ff, rho, dt)
+    return b
+
+
 def solve_pressure_plain(
     p: torch.Tensor, ff: FaceFluxes, *, dx, dy, dt, rho, volp, tol=1e-6,
     max_iter=1000, check_every=8, sor=1.0, divide=False,
@@ -56,7 +82,7 @@ def solve_pressure_plain(
     nx, ny = p.shape[0] - 2, p.shape[1] - 2
     inv_dx2, inv_dy2, sor, inv_ap, ap_d = _coefficients(dx, dy, volp, sor,
                                                         nx, ny)
-    b = (rho / dt) * ff.divergence_sum()
+    b = rhs(ff, rho, dt)
     red = checkerboard(nx, ny, p.device)
     # a tensor, so that the card divides (by a Python scalar it multiplies
     # by the reciprocal)
@@ -94,6 +120,44 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+WARP_MAX = 32  # padded rows and columns of the one-warp loop (rb_sor.cu RB_WARP_MAX)
+ROUTES = ("warp", "block", "two_launch")
+_I, _F = ctypes.c_int, ctypes.c_float
+
+
+class Params(ctypes.Structure):
+    """csrc/rb_sor.cu's RbWarpParams (the one-warp loop's settings), field
+    for field."""
+
+    _fields_ = [("nx2", _I), ("ny2", _I),
+                *((n, _F) for n in ("inv_dx2", "inv_dy2", "volp", "sor", "inv_ap", "ap_d")),
+                ("mode", _I), ("reset_ratio", _F), ("ratio", _F), ("patience", _I),
+                ("min_checks", _I), ("rhodt", _F), ("tol", _F), ("max_iter", _I),
+                ("check_every", _I)]
+
+
+@functools.lru_cache(maxsize=64)
+def _warp_params(nx2, ny2, dx, dy, volp, sor, rho, dt, tol, max_iter, check_every,
+                 divide) -> Params:
+    """The one-warp loop's settings for a call (ctypes rounds the floats to
+    float32, rho / dt as the plain path's `rhs` does); cached, read only."""
+    inv_dx2, inv_dy2, sor, inv_ap, ap_d = _coefficients(dx, dy, volp, sor,
+                                                        nx2 - 2, ny2 - 2)
+    return Params(nx2, ny2, inv_dx2, inv_dy2, volp, sor, inv_ap, ap_d, int(divide),
+                  STALL_RESET_RATIO, STALL_RATIO, STALL_PATIENCE, STALL_MIN_CHECKS,
+                  rho / dt, tol, int(max_iter), int(check_every))
+
+
+def route(nx2: int, ny2: int, small_max_cells: int) -> str:
+    """The kernel that solves a padded (nx2, ny2) field (module docstring);
+    `small_max_cells` is the library's `srcfd_rb_small_max_cells()`."""
+    if nx2 <= WARP_MAX and ny2 <= WARP_MAX:
+        return "warp"
+    if nx2 * ny2 <= small_max_cells:
+        return "block"
+    return "two_launch"
+
+
 def solve_pressure_kernel(
     p: torch.Tensor,
     ff: FaceFluxes,
@@ -118,29 +182,65 @@ def solve_pressure_kernel(
             p, ff, dx=dx, dy=dy, dt=dt, rho=rho, volp=volp, tol=tol,
             max_iter=max_iter, check_every=check_every, sor=sor,
             divide=divide)
+    out, count, _ = card_solve(p, ff, dx=dx, dy=dy, dt=dt, rho=rho, volp=volp,
+                               tol=tol, max_iter=max_iter, check_every=check_every,
+                               sor=sor, divide=divide)
+    return out, count
+
+
+def card_solve(
+    p: torch.Tensor, ff: FaceFluxes, *, dx, dy, dt, rho, volp, tol=1e-6,
+    max_iter=1000, check_every=8, sor=1.0, divide=False, _kernel=None,
+) -> Tuple[torch.Tensor, int, float]:
+    """The wrapper on a tensor that is not on the CPU: the kernels of the
+    route that p's size takes; returns (p, sweeps_run, the last check's
+    rms). `_kernel` ("warp" or "block") is for the gates and card tests
+    alone, which hold the two one-launch loops against each other on the
+    same input whatever the size."""
     kernel_lib.check_field(p, "pressure")
     nx2, ny2 = p.shape
+    lib = kernel_lib.load_library()
+    if _kernel not in (None, "warp", "block"):
+        raise ValueError(f"no one-launch kernel {_kernel!r}")
+    kernel = _kernel or route(nx2, ny2, lib.srcfd_rb_small_max_cells())
+    stream = kernel_lib.stream_ptr(p.device)
+    if kernel == "warp":
+        # the fluxes checked, p read, out and the count and rms's bits
+        # (host memory the kernel writes, read after the stream's sync)
+        # written: nothing else runs on the card
+        prm = _warp_params(nx2, ny2, dx, dy, volp, sor, rho, dt, tol, max_iter,
+                           check_every, divide)
+        for t in ff:
+            kernel_lib.check_field(t, "pressure", shape=(nx2 - 2, ny2 - 2))
+        if any(t.get_device() != p.get_device() for t in ff):
+            raise ValueError(f"the pressure kernel takes fluxes on {p.device}")
+        out = torch.empty_like(p)
+        state = torch.empty(2, dtype=torch.int32, pin_memory=True)
+        kernel_lib.check(lib.srcfd_rb_sor_warp(
+            ctypes.addressof(prm), _ptr(p), _ptr(out), *map(_ptr, ff), _ptr(state),
+            stream), "rb_sor_warp")
+        solve_pressure_kernel.launches += 1
+        solve_pressure_kernel.routes["warp"] += 1
+        kernel_lib.check(lib.srcfd_stream_sync(stream), "rb_sor_warp")
+        count, rms = state.tolist()
+        return out, count, float(np.int32(rms).view(np.float32))
     inv_dx2, inv_dy2, sor, inv_ap, ap_d = _coefficients(dx, dy, volp, sor,
                                                         nx2 - 2, ny2 - 2)
-    b = torch.zeros_like(p)
-    b[1:-1, 1:-1] = (rho / dt) * ff.divergence_sum()
-    out = p.clone(memory_format=torch.contiguous_format)
-    lib = kernel_lib.load_library()
-    stream = kernel_lib.stream_ptr(p.device)
     coef = (inv_dx2, inv_dy2, volp, sor, inv_ap, ap_d, int(divide))
-
-    if nx2 * ny2 <= lib.srcfd_rb_small_max_cells():
+    b = _padded_rhs(p, ff, rho, dt)
+    out = p.clone(memory_format=torch.contiguous_format)
+    if kernel == "block":
         # one block runs the whole loop, stall policy included
-        count = torch.empty(1, dtype=torch.int32, device=p.device)
-        rms = torch.empty(1, dtype=torch.float32, device=p.device)
+        state = torch.empty(2, dtype=torch.int32, device=p.device)
         kernel_lib.check(lib.srcfd_rb_sor_loop_small(
-            _ptr(out), _ptr(b), nx2, ny2, *coef, STALL_RESET_RATIO,
-            STALL_RATIO, STALL_PATIENCE, STALL_MIN_CHECKS,
-            float(np.float32(tol)), int(max_iter), int(check_every),
-            _ptr(count), _ptr(rms), stream),
+            _ptr(out), _ptr(b), nx2, ny2, *coef, STALL_RESET_RATIO, STALL_RATIO,
+            STALL_PATIENCE, STALL_MIN_CHECKS, float(np.float32(tol)), int(max_iter),
+            int(check_every), _ptr(state), _ptr(state) + 4, stream),
             "rb_sor_loop_small")
         solve_pressure_kernel.launches += 1
-        return out, int(count.item())
+        solve_pressure_kernel.routes["block"] += 1
+        count, rms = state.tolist()
+        return out, count, float(np.int32(rms).view(np.float32))
 
     n_part = lib.srcfd_rb_partials(nx2, ny2)
     partials = torch.empty(2 * n_part, dtype=torch.float32, device=p.device)
@@ -163,6 +263,8 @@ def solve_pressure_kernel(
         for s in range(check_every):
             last = int(s == check_every - 1)
             half(0, red_part, last)
+            if it == s == 0:  # the call counted at its first launch
+                solve_pressure_kernel.routes["two_launch"] += 1
             half(1, black_part, last)
         kernel_lib.check(lib.srcfd_rms_finalize(
             red_part, 2 * n_part, n_cells, _ptr(rms_dev), stream),
@@ -173,7 +275,8 @@ def solve_pressure_kernel(
         rms = now
         checks += 1
         it += check_every
-    return out, it
+    return out, it, float(rms)
 
 
 solve_pressure_kernel.launches = 0
+solve_pressure_kernel.routes = dict.fromkeys(ROUTES, 0)

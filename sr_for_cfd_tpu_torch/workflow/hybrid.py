@@ -40,10 +40,10 @@ from ..utils.naming import (
 
 def kernel_launch_counts() -> Dict[str, int]:
     """Launch counters of the CUDA kernel wrappers (kernels run, a graph
-    replay counting its kernels), the V-cycle graphs' replays, the tiled
-    loops' sweeps and host reads of their device state, the fused step's
-    calls and momentum host reads, and the RRE jumps attempted and
-    taken."""
+    replay counting its kernels), the SOR wrapper's calls by route, the
+    V-cycle graphs' replays, the tiled loops' sweeps and host reads of
+    their device state, the fused step's calls and momentum host reads,
+    and the RRE jumps attempted and taken."""
     from ..ops import stream_kernels as sk
     from ..ops.extrapolate import rre_extrapolate
     from ..ops.mg_kernels import mg_solve_pressure_kernel
@@ -54,6 +54,7 @@ def kernel_launch_counts() -> Dict[str, int]:
     from ..parallel.spmd_kernels import shard_rb_sweep
 
     return {"rb_sor_pressure": solve_pressure_kernel.launches,
+            **{f"rb_sor_{k}_calls": v for k, v in solve_pressure_kernel.routes.items()},
             "mg_vcycle_pressure": mg_solve_pressure_kernel.launches,
             "fused_step": simple_step_kernel.launches,
             "fused_step_reads": simple_step_kernel.reads,

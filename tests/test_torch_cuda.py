@@ -58,8 +58,8 @@ def _close(out, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [10, 60, 400])
 def test_rb_sor_kernel_matches_plain(card, n):
-    """Single-block loop (12x12, 62x62) and per-half-sweep launches
-    (402x402); 64 sweeps, no early exit."""
+    """The one-warp loop (12x12), the single-block loop (62x62) and
+    per-half-sweep launches (402x402); 64 sweeps, no early exit."""
     p, ff, geo = _problem(n, n, n, 10.0, 3.0, card)
     kw = dict(geo, tol=0.0, max_iter=64, check_every=8, sor=1.0)
     out, n_out = solve_pressure_kernel(p, ff, **kw)
@@ -222,6 +222,96 @@ def test_rb_sor_divide_form_matches_plain(card):
         ref, n_ref = solve_pressure_plain(p, ff, **kw)
         _close(out, ref)
         assert n_out == n_ref == 64
+
+
+# (nx, ny, tol, max_iter): 64 sweeps; a solve the stall policy ends at the
+# float32 floor (the BFS 10x10 spacing); one that ends on tolerance;
+# max_iter cutting a check short; the one-warp route's edges
+RB_WARP_CASES = {
+    "64 sweeps": (10, 10, 0.0, 64), "stall": (10, 10, 1e-6, 1000),
+    "tolerance": (10, 10, 1e-4, 1000), "max_iter 1": (10, 10, 0.0, 1),
+    "max_iter 7": (10, 10, 0.0, 7), "max_iter 9": (10, 10, 0.0, 9),
+    "nx2 32": (30, 7, 1e-5, 300), "ny2 32": (7, 30, 0.0, 96),
+    "32x32": (30, 30, 0.0, 40), "20x20": (20, 20, 1e-6, 1000)}
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("divide", [False, True])
+@pytest.mark.parametrize("case", list(RB_WARP_CASES))
+def test_rb_warp_kernel_is_bit_equal_to_the_block_loop(card, case, divide):
+    """Row 1's one-warp kernel (b built inside) against the single-block
+    loop it replaced on the 12x12 route (b built on the host): field, count
+    and the last rms bit-equal; within REL_TOL of the plain version with
+    equal counts where the loop stops away from the float32 floor."""
+    from sr_for_cfd_tpu_torch.ops.pressure_kernels import card_solve
+
+    nx, ny, tol, max_iter = RB_WARP_CASES[case]
+    p, ff, geo = _problem(nx * 37 + ny, nx, ny, 10.0, 3.0, card)
+    kw = dict(geo, tol=tol, max_iter=max_iter, check_every=8, sor=1.0, divide=divide)
+    out, n, rms = card_solve(p, ff, **kw, _kernel="warp")
+    ref, n_ref, rms_ref = card_solve(p, ff, **kw, _kernel="block")
+    torch.cuda.synchronize()
+    assert _same_bits(out, ref) and n == n_ref
+    assert np.float32(rms).tobytes() == np.float32(rms_ref).tobytes()
+    if case in ("stall", "20x20"):
+        assert n < max_iter and rms >= np.float32(tol)
+        return
+    if tol > 0:
+        assert rms < np.float32(tol) and n < max_iter
+    else:
+        assert n == -(-max_iter // 8) * 8
+    plain, n_plain = solve_pressure_plain(p, ff, **kw)
+    _close(out, plain)
+    assert n == n_plain
+
+
+@pytest.mark.cuda
+def test_rb_warp_route_runs_one_device_kernel_per_call(card):
+    """torch.profiler: a call on the one-warp route runs its kernel and
+    nothing else on the card (the old route ran b's fill, adds, multiply
+    and copy and p's copy besides)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sr_for_cfd_tpu_torch.ops.pressure_kernels import card_solve
+
+    p, ff, geo = _problem(10, 10, 10, 10.0, 3.0, card)
+    kw = dict(geo, tol=0.0, max_iter=64, check_every=8, sor=1.0)
+
+    def kernels(fn, calls=5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                and "Memcpy" not in e.name and "Memset" not in e.name]
+
+    new = kernels(lambda: solve_pressure_kernel(p, ff, **kw))
+    assert len(new) == 5 and all("rb_sor_warp_kernel" in k for k in new), new
+    old = kernels(lambda: card_solve(p, ff, **kw, _kernel="block"))
+    assert len(old) > 5 and sum("rb_sor_loop_small_kernel" in k for k in old) == 5, old
+
+
+@pytest.mark.cuda
+def test_rb_warp_route_raises_on_fluxes_it_does_not_take(card):
+    p, ff, geo = _problem(10, 10, 10, 10.0, 3.0, card)
+    kw = dict(geo, tol=0.0, max_iter=8)
+    for bad, match in ((ff._replace(n=ff.n.T.contiguous().T), "contiguous"),
+                       (ff._replace(w=ff.w[:, :-1].contiguous()), r"takes a \(10, 10\)"),
+                       (ff._replace(s=ff.s.double()), "float32"),
+                       (ff._replace(e=ff.e.cpu()), "CUDA")):
+        with pytest.raises(ValueError, match=match):
+            solve_pressure_kernel(p, bad, **kw)
+    with pytest.raises(ValueError, match="kernel"):
+        from sr_for_cfd_tpu_torch.ops.pressure_kernels import card_solve
+
+        card_solve(p, ff, **kw, _kernel="two_launch")
 
 
 @pytest.mark.cuda
