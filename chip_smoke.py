@@ -128,6 +128,36 @@ no result line:
    CPU, and the SpmdSolver cavities of 5c at 32x32 (40 steps) and of 5d
    at 64x64 (20 steps; their CPU side on a gloo group of the same rank);
    iteration counts must be equal and fields within 1e-4 relative.
+7. sweep and train. Gates first: row 3's batched launch (design (a) over a
+   case axis, one block per case) at 10x10 and 50x50, 8 cases (Re
+   100..800, the sweep's double-lid QUICK cavity, dt 1e-3, float32, K=500,
+   each from its own seeded field) with case 5 masked out: every listed
+   case bit-equal (fields, fluxes, res, counts) to its single design (a)
+   launch, the masked case's inputs unchanged; at K=4 (inner tolerance
+   1e-3) within REL_TOL of the plain version with equal counts, both
+   timed. Then the main path, counters set to 0 before and read after:
+   `batched_cavity_solve` over Re 100..800 at 10x10 and 50x50 with
+   fused_step (the batched route, auto K=500, to the 100000-step budget:
+   float32 never meets the 1e-6 criteria) and at 400x400 in the multigrid
+   mode (design (b), a loop over the cases; cut to 300 steps); per size
+   the iterations per case, batched launches (must be ceil(max count /
+   K)) and host reads, s and ms per step; the 10x10 and 400x400 fields
+   paired in memory as `load_paired_reynolds_multi` pairs them (the card
+   has no h5py), Re 800 held out, `standardize_train_test`,
+   `train_sr_autoencoder` at the reference's widths (10 -> 400, latent 50,
+   batch 8, Adam 1e-3; cut to 50 epochs, logged every 10): s per epoch,
+   samples/s, first and last loss (the loss must fall), best epoch;
+   `evaluate_for_re(800)` (MAE and NMAE of a cut run); `export_models` to
+   a temporary directory, the combined file reloaded by
+   `SRModel.from_checkpoint` with bit-equal weights, predicting bit-equal
+   under deterministic cuDNN (two predictions in the default mode
+   compared too, printed). After it: one K=500
+   launch of all 8 cases from each sweep's final fields timed in turns
+   with one single-case launch, the 10x10 Re 400 case bit-equal to a solo
+   `make_cavity_solver(..., steps_per_kernel=500)` solve, and one
+   training step on the card against the CPU (TF32 off; loss within 1e-4
+   relative, weights within 1e-5 of the largest) and twice on the card
+   (bit-equal or not, printed).
 
 The last lines are a `{"kernels": [...]}` line, the card's name and power
 limit as nvidia-smi prints them, and `{"ok": true, "device": {...}}`.
@@ -1435,7 +1465,10 @@ def reset_counters():
     from sr_for_cfd_tpu_torch.ops.mg_kernels import mg_solve_pressure_kernel
     from sr_for_cfd_tpu_torch.ops.momentum_kernels import tiled_solve_momentum
     from sr_for_cfd_tpu_torch.ops.pressure_kernels import solve_pressure_kernel
-    from sr_for_cfd_tpu_torch.ops.step_kernels import simple_step_kernel
+    from sr_for_cfd_tpu_torch.ops.step_kernels import (
+        simple_step_kernel,
+        simple_step_small_batched,
+    )
     from sr_for_cfd_tpu_torch.ops.tiled_kernels import tiled_solve_pressure
     from sr_for_cfd_tpu_torch.parallel.spmd_kernels import shard_rb_sweep
 
@@ -1448,6 +1481,7 @@ def reset_counters():
     tiled_solve_pressure.reads = tiled_solve_pressure.sweeps = 0
     tiled_solve_momentum.reads = tiled_solve_momentum.sweeps = 0
     simple_step_kernel.reads = simple_step_kernel.calls = 0
+    simple_step_small_batched.launches = 0
     rre_extrapolate.attempts = rre_extrapolate.taken = 0
 
 
@@ -1621,6 +1655,396 @@ def phase_north_star(device):
             f"(b) launches, {c['fused_step_reads'] / n:.2f} momentum host reads, "
             f"{c['mg_vcycle_replays'] / n:.2f} V-cycle replays")
     return totals
+
+
+# the data-generation sweep and the SR training pipeline (sweep.py and
+# training.py's defaults): the double-lid cavity over Re 100..800, QUICK,
+# dt 1e-3, float32, at the 10 -> 400 autoencoder's widths; cuts: the 400^2
+# solves to SWEEP_HR_STEPS steps, the training to TRAIN_EPOCHS epochs
+SWEEP_RE = tuple(range(100, 801, 100))
+SWEEP = dict(dt=1e-3, scheme="QUICK", double_lid=True, dtype="float32")
+SWEEP_MAX_ITER = 100000  # sweep.py's default budget
+SWEEP_CHUNK = 1000  # sweep.py's default chunk
+SWEEP_K = 500  # the auto-K rule's choice for this chunk and budget
+SWEEP_LR, SWEEP_MID, SWEEP_HR = 10, 50, 400  # the sweep's mesh sizes
+SWEEP_HR_STEPS = 300  # cut: a 400^2 cavity needs far more to converge
+TRAIN_EPOCHS = 50  # cut: the reference trains 500
+TRAIN_LOG_EVERY = 10
+SWEEP_BC = "double_lid(u_top=1,u_bottom=1)"
+PLAIN_K = 4  # steps of the batched launch's gate against the plain version
+# the launch counters the sweep's report keeps
+SWEEP_COUNTERS = ("fused_step_batched", "fused_step", "fused_step_calls", "fused_step_reads",
+                  "mg_vcycle_pressure", "mg_vcycle_replays")
+
+
+def case_batch(device, n_side, k, seed=None, **extra):
+    """The sweep's stacked state at n_side^2 for SWEEP_RE, K steps a launch:
+    (first case's solver, u, v, p, ff, nu), each case from the cold start
+    or, with a seed, from its own smooth seeded field."""
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops.stencil import FaceFluxes
+    from sr_for_cfd_tpu_torch.solver.cases import make_cavity_solver
+
+    solvers = []
+    for i, re in enumerate(SWEEP_RE):
+        s = make_cavity_solver(Re=float(re), nx=n_side, ny=n_side, fused_step=True,
+                               steps_per_kernel=k, chunk_size=k, device=device,
+                               **SWEEP, **extra)
+        if seed is not None:
+            s.warm_start(smooth_fields(seed + i, n_side, n_side))
+        solvers.append(s)
+    st = [s.state for s in solvers]
+    u, v, p = (torch.stack([getattr(x, c) for x in st]).contiguous() for c in "uvp")
+    ff = FaceFluxes(*(torch.stack([x.ff[i] for x in st]).contiguous() for i in range(4)))
+    nu = torch.tensor([1.0 / re for re in SWEEP_RE], dtype=torch.float32, device=device)
+    return solvers[0], u, v, p, ff, nu
+
+
+def one_case(t, b):
+    """Case b of a stacked (u, v, p, ff) tuple."""
+    from sr_for_cfd_tpu_torch.ops.stencil import FaceFluxes
+
+    return t[0][b], t[1][b], t[2][b], FaceFluxes(*(f[b] for f in t[3]))
+
+
+def batched_work(case, counts, listed, device):
+    """(bytes, flops) of a batched launch: the single launch's fused_work
+    for each listed case with its own inner counts."""
+    nb = fl = 0
+    for b in listed:
+        w = fused_work(case, [int(x) for x in counts[b].tolist()], device)
+        nb, fl = nb + w[0], fl + w[1]
+    return nb, fl
+
+
+def phase_sweep_kernels(device):
+    """Row 3's batched launch (design (a) over a case axis): at 10^2 and
+    50^2, 8 cases from their own seeded fields, K = 500, the sweep's
+    settings, case 5 masked out: each listed case's fields, fluxes, res and
+    counts bit-equal to its single design (a) launch, the masked case's
+    inputs unchanged; then within REL_TOL of the plain version with equal
+    counts (K = PLAIN_K, inner tolerance 1e-3: a tolerance the loops reach
+    before the float32 floor, so that the counts can be equal), the
+    batched launch and the plain version timed there on the same inputs."""
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops.step_kernels import (
+        simple_step_kernel,
+        simple_step_plain,
+        simple_step_small_batched,
+    )
+
+    masked = 5
+    listed = [b for b in range(len(SWEEP_RE)) if b != masked]
+    gates, row = [], {}
+    for n_side in (SWEEP_LR, SWEEP_MID):
+        s0, *t = case_batch(device, n_side, SWEEP_K, seed=100 * n_side)
+        case, prof, nu = s0.case, s0.profile, t[4]
+        out = simple_step_small_batched(*t[:4], case, prof, nu, listed)
+        torch.cuda.synchronize()
+        for b in listed:
+            one = simple_step_kernel(*one_case(t, b), case, prof, nu=nu[b], _design="a")
+            got = (*one_case(out, b)[:3], *one_case(out, b)[3], out[4][b])
+            same(gates, f"batched {n_side}^2 K={SWEEP_K} case {b} (Re {SWEEP_RE[b]}) vs its "
+                 "single launch", got, out[5][b].tolist(), (*one[:3], *one[3], one[4]), one[5])
+        unchanged = all(torch.equal(a[masked], b[masked])
+                        for a, b in zip((*out[:3], *out[3]), (*t[:3], *t[3])))
+        log(f"  batched {n_side}^2: masked case {masked} unchanged {unchanged}, its res "
+            f"{out[4][masked].tolist()} counts {out[5][masked].tolist()}")
+        if not unchanged or out[4][masked].any() or out[5][masked].any():
+            fail(f"batched {n_side}^2: the masked case was touched")
+        # the plain version, on the same inputs at K = PLAIN_K
+        s0, *t = case_batch(device, n_side, PLAIN_K, seed=100 * n_side, inner_tolerance=1e-3)
+        case, prof, nu = s0.case, s0.profile, t[4]
+
+        def kernel():
+            return simple_step_small_batched(*t[:4], case, prof, nu, listed)
+
+        out = kernel()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = {b: simple_step_plain(*one_case(t, b), case, prof, nu=nu[b]) for b in listed}
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = max(check_pair(f"batched {n_side}^2 K={PLAIN_K} case {b}", a, out[5][b].tolist(), r,
+                             ref[b][5], quiet=True)
+                  for b in listed
+                  for a, r in zip((*one_case(out, b)[:3], *one_case(out, b)[3]),
+                                  (*ref[b][:3], *ref[b][3])))
+        ms = cuda_ms(kernel, 5)
+        per_call = launches_per_call(kernel, simple_step_small_batched)
+        if per_call < 1:
+            fail(f"batched {n_side}^2: the gate's call counted {per_call} launches")
+        b_ms, b_by = bound_ms(*batched_work(case, out[5], listed, device))
+        log(f"  batched {n_side}^2 K={PLAIN_K}, {len(listed)} cases: max_abs_err {err:.3e} against the "
+            f"plain version (equal counts), kernel {ms:.4f} ms ({per_call} launch a call), plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.3e} ms ({b_by})")
+        gates.append(dict(gate=f"batched {n_side}^2 K={PLAIN_K} vs plain", max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          launches_per_call=per_call))
+        if n_side == SWEEP_LR:
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       launches_per_call=per_call, cases_per_launch=len(listed),
+                       steps_per_launch=PLAIN_K)
+    row["gates"] = gates
+    return row
+
+
+def batched_turns(device, fields, n_side, reps=3):
+    """One batched launch of all 8 cases (K = 500) against one single launch
+    of case 0, from the sweep's final fields, in turns (batched, single,
+    single, batched; CUDA events); returns (batched ms, single ms, bound ms
+    of the batched launch, its bound)."""
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops.step_kernels import (
+        simple_step_kernel,
+        simple_step_small_batched,
+    )
+
+    s0, *t = case_batch(device, n_side, SWEEP_K)
+    for b, re in enumerate(SWEEP_RE):  # the final fields as a warm start
+        s0.warm_start(fields[float(re)])
+        for dst, src in zip((*t[:3], *t[3]), (s0.state.u, s0.state.v, s0.state.p,
+                                               *s0.state.ff)):
+            dst[b].copy_(src)
+    case, prof, nu = s0.case, s0.profile, t[4]
+    every = range(len(SWEEP_RE))
+
+    def batched():
+        return simple_step_small_batched(*t[:4], case, prof, nu, every)
+
+    def single():
+        return simple_step_kernel(*one_case(t, 0), case, prof, nu=nu[0], _design="a")
+
+    counts = batched()[5]
+    times = [cuda_ms(fn, reps) for fn in (batched, single, single, batched)]
+    b_ms, b_by = bound_ms(*batched_work(case, counts, every, device))
+    torch.cuda.synchronize()
+    return (times[0] + times[3]) / 2, (times[1] + times[2]) / 2, b_ms, b_by, times
+
+
+def pair_in_memory(lr_fields, hr_fields, lr_dim, hr_dim, bc_type):
+    """The sweep's fields paired as io/hdf5.load_paired_reynolds_multi pairs
+    a file's groups: Re sorted, then u, v, p; (x_lr, x_hr, res, comps,
+    bcs)."""
+    import numpy as np
+
+    xs_lr, xs_hr, res, comps, bcs = [], [], [], [], []
+    for re in sorted(set(lr_fields) & set(hr_fields)):
+        for c in "uvp":
+            xs_lr.append(lr_fields[re][c].astype(np.float32).reshape(lr_dim, lr_dim))
+            xs_hr.append(hr_fields[re][c].astype(np.float32).reshape(hr_dim, hr_dim))
+            res.append(re)
+            comps.append(c)
+            bcs.append(bc_type)
+    return (np.asarray(xs_lr, dtype=np.float32)[..., None],
+            np.asarray(xs_hr, dtype=np.float32)[..., None],
+            np.asarray(res), np.asarray(comps), np.asarray(bcs))
+
+
+def training_step_gate(device, module, x_lr, x_hr):
+    """One training step on the card against the CPU from the same weights,
+    Adam state and batch, TF32 off: the loss within 1e-4 relative, the
+    weights after the step within 1e-5 of the largest |weight|. The Adam
+    moments come from 3 steps first (from fresh moments Adam's first
+    update is nearly lr * sign(g), which a rounding can flip). Then the
+    same step twice on the card from the same state: bit-equal or not
+    (cuDNN's algorithm choice), printed."""
+    import copy
+
+    import torch
+
+    from sr_for_cfd_tpu_torch.sr.inference import _no_tf32
+    from sr_for_cfd_tpu_torch.workflow import training as tr
+
+    module = copy.deepcopy(module)
+    opt = tr.Adam(list(module.parameters()))
+    xb, yb = (torch.as_tensor(a[:8], device=device) for a in (x_lr, x_hr))
+    with _no_tf32():
+        for _ in range(3):
+            tr.train_step(module, opt, xb, yb)
+
+        def step(on):
+            m = copy.deepcopy(module).to(on)
+            o = opt.to(on)
+            loss = tr.train_step(m, o, xb.to(on), yb.to(on))
+            return float(loss), [p.detach() for p in m.parameters()]
+
+        loss_c, p_c = step("cpu")
+        loss_g, p_g = step(device)
+        loss_g2, p_g2 = step(device)
+    torch.cuda.synchronize()
+    scale = max(float(p.abs().max()) for p in p_c)
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(p_g, p_c))
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    repeat = loss_g == loss_g2 and all(torch.equal(a, b) for a, b in zip(p_g, p_g2))
+    log(f"  training step card vs CPU: loss {loss_g:.8f} / {loss_c:.8f} (rel {rel:.2e}, "
+        f"limit 1e-4); weights max_abs_err {err:.3e} (limit 1e-5 x {scale:.4f}); the same "
+        f"step twice on the card bit-equal: {repeat}")
+    if not (rel <= 1e-4 and err <= 1e-5 * scale):
+        fail("the training step on the card disagrees with the CPU")
+    return dict(gate="training step card vs CPU", loss_rel_err=rel, max_abs_err=err,
+                weight_scale=scale, card_repeat_bit_equal=repeat)
+
+
+def phase_sweep_train(device):
+    """The data-generation sweep and the SR training at full width, launch
+    counters set to 0 just before and read just after: batched_cavity_solve
+    at 10^2 and 50^2 (the batched route, to the budget), at 400^2 in the
+    multigrid mode (design (b), a loop over the cases; cut), the 10^2 and
+    400^2 fields paired in memory (the card has no h5py), the Re 800 hold
+    out, standardization, train_sr_autoencoder at the reference's widths
+    (cut), evaluate_for_re, export_models and a reload."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from sr_for_cfd_tpu_torch.models.autoencoder import param_count
+    from sr_for_cfd_tpu_torch.solver.cases import make_cavity_solver
+    from sr_for_cfd_tpu_torch.sr.inference import SRModel
+    from sr_for_cfd_tpu_torch.workflow import sweep as sw
+    from sr_for_cfd_tpu_torch.workflow import training as tr
+    from sr_for_cfd_tpu_torch.workflow.hybrid import kernel_launch_counts
+
+    t_phase = time.perf_counter()
+    reset_counters()
+    sw.batched_cavity_solve.reads = 0
+    fields, report = {}, {}
+    for n_side, kw in ((SWEEP_LR, {}), (SWEEP_MID, {}),
+                       (SWEEP_HR, dict(pressure_solver="multigrid",
+                                       max_iterations=SWEEP_HR_STEPS))):
+        kw = dict(dict(max_iterations=SWEEP_MAX_ITER), **kw)
+        before, reads = kernel_launch_counts(), sw.batched_cavity_solve.reads
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            fields[n_side], iters = sw.batched_cavity_solve(
+                SWEEP_RE, n_side, n_side, fused_step=True, chunk_size=SWEEP_CHUNK,
+                device=device, **SWEEP, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        lines = printed.getvalue().splitlines()
+        after = kernel_launch_counts()
+        d = {k: after[k] - before[k] for k in after}
+        reads = sw.batched_cavity_solve.reads - reads
+        steps = int(iters.max())
+        log(f"  sweep {n_side}^2: {lines[0] if lines[0].startswith('[sweep]') else 'no notice'}; "
+            f"last line: {lines[-1].strip()}")
+        log(f"  sweep {n_side}^2: iterations per case {iters.tolist()}; {secs:.3f} s, "
+            f"{1e3 * secs / steps:.4f} ms per step of all {len(SWEEP_RE)} cases; batched "
+            f"launches {d['fused_step_batched']}, host reads {reads}, design (b) launches "
+            f"{d['fused_step'] - d['fused_step_batched']}, V-cycle replays "
+            f"{d['mg_vcycle_replays']}")
+        if len(fields[n_side]) != len(SWEEP_RE):
+            fail(f"sweep {n_side}^2: a case diverged")
+        for f in fields[n_side].values():
+            if any(not np.isfinite(f[c]).all() or f[c].shape != (n_side, n_side) for c in "uvp"):
+                fail(f"sweep {n_side}^2: non-finite fields or a wrong shape")
+        report[n_side] = dict(iterations=iters.tolist(), seconds=secs,
+                              ms_per_step=1e3 * secs / steps, host_reads=reads,
+                              launches={k: d[k] for k in SWEEP_COUNTERS})
+        if n_side < SWEEP_HR:
+            expect = -(-steps // SWEEP_K)
+            if not (d["fused_step_batched"] == expect == reads and d["fused_step_calls"]
+                    == expect and d["mg_vcycle_pressure"] == 0):
+                fail(f"sweep {n_side}^2: {d['fused_step_batched']} batched launches and "
+                     f"{reads} host reads, expected {expect} each and no other step launch")
+        elif d["fused_step_batched"] or d["fused_step"] <= 0 or d["mg_vcycle_pressure"] <= 0:
+            fail(f"sweep {SWEEP_HR}^2: the multigrid mode did not run on design (b) and the "
+                 "V-cycle")
+    log(f"  sweep cut: {SWEEP_HR}^2 solves to {SWEEP_HR_STEPS} steps (a 400^2 cavity needs far "
+        f"more to converge)")
+
+    # training at the reference's widths on the 10^2 -> 400^2 pairs
+    x_lr, x_hr, res, comps, bcs = pair_in_memory(
+        fields[SWEEP_LR], fields[SWEEP_HR], SWEEP_LR, SWEEP_HR, SWEEP_BC)
+    train, test = tr.split_by_reynolds_config(res, bcs)
+    z_lr, z_hr, stats = tr.standardize_train_test(x_lr, x_hr, comps, train, SWEEP_LR, SWEEP_HR)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        result = tr.train_sr_autoencoder(
+            z_lr[train], z_hr[train], SWEEP_LR, SWEEP_HR, epochs=TRAIN_EPOCHS, batch_size=8,
+            log_every=TRAIN_LOG_EVERY, seed=0, device=device)
+    hist = result.loss_history
+    n_train = int(train.sum())
+    steps = max(1, n_train // 8)
+    log(f"  train {SWEEP_LR}->{SWEEP_HR} ({param_count(result.model)} weights, latent 50, batch 8, Adam 1e-3; "
+        f"cut to {TRAIN_EPOCHS} epochs, the reference 500): {n_train} samples, {steps} steps "
+        f"an epoch, {result.seconds:.3f} s, {result.seconds / TRAIN_EPOCHS:.4f} s per epoch, "
+        f"{TRAIN_EPOCHS * steps * 8 / result.seconds:.1f} samples/s; loss {hist[0]:.6f} -> "
+        f"{hist[-1]:.6f}, best epoch {result.best_epoch} ({result.best_loss:.6f}); "
+        f"{len(printed.getvalue().splitlines())} log lines")
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+        fail("training: the loss did not fall")
+    ev = tr.evaluate_for_re(800, result.model, None, z_lr[test], z_hr[test], res[test],
+                            comps[test], stats, SWEEP_LR, SWEEP_HR, verbose=False)
+    log("  evaluate Re 800 (a cut run's numbers, not a quality claim): " + ", ".join(
+        f"{r['component']} MAE {r['mae']:.5f} NMAE {r['nmae_pct']:.3f}%"
+        for r in ev["per_sample"]))
+    with tempfile.TemporaryDirectory(prefix="srcfd_export_") as out_dir:
+        with contextlib.redirect_stdout(io.StringIO()):
+            paths = tr.export_models(result, stats, SWEEP_LR, SWEEP_HR, "smoke",
+                                     out_dir=out_dir)
+        model = SRModel.from_checkpoint(paths["combined"], SWEEP_LR, SWEEP_HR, device=device)
+    x = torch.as_tensor(z_lr[test], device=device)
+    # cuDNN may pick algorithms whose sums run in another order from call
+    # to call (the transposed convolutions' backward-data kernels): the
+    # reload is compared with deterministic algorithms, and how far two
+    # calls of the default mode differ is printed
+    weights_equal = all(torch.equal(a, b) for a, b in zip(model.params.values(),
+                                                          result.params.values()))
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        reload_equal = torch.equal(model.predict(x), SRModel(
+            SWEEP_LR, SWEEP_HR, result.model).predict(x))
+    finally:
+        cudnn.deterministic = saved
+    a, b = model.predict(x), model.predict(x)
+    log(f"  export: {sorted(paths)}; the reloaded weights bit-equal {weights_equal}, its "
+        f"prediction bit-equal to the trained module's (deterministic cuDNN): {reload_equal}; "
+        f"two predictions in the default mode bit-equal: {torch.equal(a, b)} (max_abs_err "
+        f"{float((a - b).abs().max()):.3e})")
+    if not (weights_equal and reload_equal):
+        fail("export: the reloaded model differs")
+    torch.cuda.synchronize()
+    launches = kernel_launch_counts()
+    log(f"  sweep and train main path: {time.perf_counter() - t_phase:.1f} s")
+
+    # outside the counted path: the final state's launch timing, a solo
+    # solve and the training-step gate
+    for n_side in (SWEEP_LR, SWEEP_MID):
+        ms, single_ms, b_ms, b_by, times = batched_turns(device, fields[n_side], n_side)
+        log(f"  batched launch {n_side}^2, 8 cases, K={SWEEP_K}, from the sweep's final fields: "
+            f"{ms:.3f} ms against one single-case launch {single_ms:.3f} ms (in turns: "
+            f"{', '.join(f'{t:.3f}' for t in times)}); bound {b_ms:.4f} ms ({b_by})")
+        report[n_side].update(batched_ms=ms, single_ms=single_ms, batched_bound_ms=b_ms,
+                              batched_bound_by=b_by)
+    solo = make_cavity_solver(Re=400.0, nx=SWEEP_LR, ny=SWEEP_LR, fused_step=True, steps_per_kernel=SWEEP_K,
+                              max_iterations=SWEEP_MAX_ITER, chunk_size=SWEEP_CHUNK,
+                              device=device,
+                              **SWEEP)
+    solo.solve(verbose=False, save_results=False)
+    solo_equal = all(np.array_equal(solo.interior_fields()[c], fields[SWEEP_LR][400.0][c])
+                     for c in "uvp")
+    log(f"  sweep {SWEEP_LR}^2 Re 400 bit-equal to a solo make_cavity_solver solve ({solo.state.count} "
+        f"steps, K={SWEEP_K}): {solo_equal}")
+    if not solo_equal:
+        fail(f"sweep {SWEEP_LR}^2: a case differs from its solo solve")
+    step_gate = training_step_gate(device, result.model, z_lr[train], z_hr[train])
+    return launches, dict(report=report, train=dict(
+        epochs=TRAIN_EPOCHS, seconds=result.seconds, first_loss=hist[0], last_loss=hist[-1],
+        best_epoch=result.best_epoch, weights=param_count(result.model), evaluate=ev),
+        gates=[step_gate, dict(gate=f"sweep {SWEEP_LR}^2 vs solo solve", bit_equal=True),
+               dict(gate="export reload", bit_equal=True)])
 
 
 # scripts/scaling_bench.py's mg_pallas case at its 2048^2 grid
@@ -2263,6 +2687,10 @@ def main():
     shard_row = phase_shard_kernels(device)
     torch.cuda.synchronize()
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    batched_row = phase_sweep_kernels(device)
+    torch.cuda.synchronize()
+    log(f"phase sweep kernels: {time.perf_counter() - t:.1f} s")
 
     by_path = {}
     for name, phase in (("non_fused", phase_non_fused),
@@ -2276,6 +2704,12 @@ def main():
         torch.cuda.synchronize()
         log(f"phase {name} main path: {time.perf_counter() - t:.1f} s, "
             f"launches {by_path[name]}")
+
+    t = time.perf_counter()
+    by_path["sweep_train"], sweep_train = phase_sweep_train(device)
+    torch.cuda.synchronize()
+    log(f"phase sweep_train main path and its gates: {time.perf_counter() - t:.1f} s, "
+        f"launches {by_path['sweep_train']}")
 
     non_fused = by_path["non_fused"]
     mean = non_fused["rb_sor_sweeps"] / non_fused["rb_sor_pressure"]
@@ -2322,6 +2756,15 @@ def main():
                                            "momentum_reads_per_call",
                                            "staged_momentum_reads_per_call")},
              momentum_pass=mom_rows["fused_step_momentum"], gates=fused),
+        # row 3 over a case axis: ms, plain_ms and bound_ms are the
+        # PLAIN_K gate's (7 cases at 10^2, the same inputs); sweep: each size's
+        # sweep, with its K=500 launch of all 8 cases timed in turns with
+        # one single-case launch
+        dict(name="fused_step_batched", route="cuda",
+             source="sr_for_cfd_tpu_torch/csrc/fused_step.cu",
+             replaces="sr_for_cfd_tpu/ops/pallas_step.py:414",
+             library_ms=None, **launches("fused_step_batched"), **batched_row, sweep=sweep_train["report"], train=sweep_train["train"],
+             path_gates=sweep_train["gates"]),
         # ms: the wrapper's one-pass call with its host read; pass_alone_ms:
         # the fused pass alone (CUDA events over 100 launches)
         dict(name="tiled_momentum", route="cuda",
@@ -2367,14 +2810,18 @@ def main():
         row["lost_s"] = row["calls"] * (row["ms"] - row["bound_ms"]) / 1e3
     # row 1: Lost at the main path's sweeps per call (the gate's 64 is a
     # third of them)
-    row1 = rows[0]
+    row = {r["name"]: r for r in rows}
+    row1 = row["rb_sor_pressure"]
     row1["lost_s"] = row1["calls"] * (row1["main_ms"] - row1["main_bound_ms"]) / 1e3
     # row 3's own time: its call less the V-cycles (row 2's graph replays)
     # inside it, each at one row 2 cycle's call time from this run; its
     # calls counted, as a gate call's launches (its solves' no-op launches
     # included) need not be a main-path call's
-    fused_row, mg = rows[2], kernels["400x400"]
-    fused_row["calls"] = sum(c["fused_step_calls"] for c in by_path.values())
+    fused_row, mg = row["fused_step"], kernels["400x400"]
+    # the batched launches count as fused-step calls too; they are row 3
+    # over a case axis, whose Lost is worked out below
+    fused_row["calls"] = sum(c["fused_step_calls"] - c["fused_step_batched"]
+                             for c in by_path.values())
     fused_row["lost_s"] = fused_row["calls"] * (fused_row["ms"] - fused_row["bound_ms"]) / 1e3
     cycle_ms = mg["ms"] / mg["cycles"]
     fused_row["vcycle_call_ms"] = cycle_ms
@@ -2386,7 +2833,7 @@ def main():
         f"{fused_row['own_lost_s']:.4f} s of {fused_row['lost_s']:.4f}")
     # row 4: its calls are the passes run (a batch after the exit adds
     # no-op launches); Lost also for the pass alone
-    mom = rows[3]
+    mom = row["tiled_momentum"]
     mom["sweeps"] = sum(c["tiled_momentum_sweeps"] for c in by_path.values())
     mom["host_reads"] = sum(c["tiled_momentum_reads"] for c in by_path.values())
     mom["calls"] = mom["sweeps"] / 3
@@ -2394,7 +2841,14 @@ def main():
     mom["alone_lost_s"] = mom["calls"] * (mom["pass_alone_ms"] - mom["bound_ms"]) / 1e3
     # row 5: its calls are the sweeps run (a batch after the exit adds
     # no-op launches); Lost also at the loop's time per sweep
-    tiled = rows[7]
+    # the batched launch's Lost at the sweep's own launches: the K=500
+    # launch of 8 cases at 10^2 and 50^2 from the final fields
+    batched = row["fused_step_batched"]
+    rep = sweep_train["report"]
+    batched["lost_s"] = sum(rep[n]["launches"]["fused_step_batched"]
+                            * (rep[n]["batched_ms"] - rep[n]["batched_bound_ms"])
+                            for n in (SWEEP_LR, SWEEP_MID)) / 1e3
+    tiled = row["tiled_rb_pressure"]
     tiled["sweeps"] = by_path["tiled"]["tiled_rb_sweeps"]
     tiled["host_reads"] = by_path["tiled"]["tiled_rb_reads"]
     tiled["calls"] = tiled["sweeps"]

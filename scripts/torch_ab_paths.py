@@ -12,8 +12,10 @@ SPMD multigrid) without its gates, so that both trees' paths run on the
 same card in one machine. Each path prints its ms/iter, inner counts and
 launches per step as `chip_smoke.py` does; with --out, each side's log is
 written under DIR too; --paths runs only the named paths (`chip_smoke.py`'s
-phase functions, e.g. phase_big_grid), so that more sides fit one call.
-Needs a CUDA card; exits non-zero if a side fails.
+phase functions, e.g. phase_big_grid), so that more sides fit one call;
+`--paths phase_kernels` runs rows 1 and 2's gates instead (their kernel,
+plain and stage-form times). Needs a CUDA card; exits non-zero if a side
+fails.
 """
 
 import argparse
@@ -49,7 +51,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--out", default=None)
-    ap.add_argument("--paths", nargs="+", choices=PATHS, default=list(PATHS))
+    ap.add_argument("--paths", nargs="+", choices=PATHS + ("phase_kernels",),
+                    default=list(PATHS))
     args = ap.parse_args()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -59,7 +62,7 @@ def main():
         run = subprocess.run([sys.executable, "-c", SIDE % (tuple(args.paths),)], cwd=root,
                              capture_output=True, text=True, timeout=1200)
         lines = [ln for ln in run.stdout.splitlines() + run.stderr.splitlines()
-                 if "ms/iter" in ln or "Error" in ln or "FAIL" in ln]
+                 if "ms/iter" in ln or ": kernel " in ln or "Error" in ln or "FAIL" in ln]
         print("\n".join(lines), flush=True)
         if args.out:
             name = f"side{i + 1}_{os.path.basename(root.rstrip('/'))}.log"

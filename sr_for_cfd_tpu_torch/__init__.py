@@ -8,6 +8,12 @@ Entry points run on the card (`device="cuda"`) unless the caller passes
 
     from sr_for_cfd_tpu_torch import create_lid_driven_cavity
     solver, iterations, seconds = create_lid_driven_cavity(Re=100, nx=64, ny=64)
+
+The data-generation sweep and the SR training pipeline live in
+`workflow.sweep` (`batched_cavity_solve`, `generate_training_data`) and
+`workflow.training` (`train_sr_autoencoder`, `evaluate_for_re`,
+`export_models`); like the JAX package, the top level re-exports none of
+them, and `SRModel` (with `SRModel.create`) lazily.
 """
 
 __version__ = "0.1.0"

@@ -14,13 +14,18 @@
 // a sweep moves ~2 MB, which stays in the 50 MB L2; with ~100-200 launches
 // per step it is bound by launch latency too.
 //
-// Design (a), srcfd_step_small: one block runs K whole steps with every
-// field in shared memory (12 padded arrays: 6.9 KB at 12x12, at most
-// 227 KB), synchronising with __syncthreads() only. One launch per K
-// steps; the host reads res[3] and counts[3] once per launch. All threads
-// carry the same loop state (it is computed from block sums), so they take
-// the same branches and reach the same barriers. Every loop is bounded by
-// K, max_iter (inner sweeps) or a size.
+// Design (a), srcfd_step_small_batched: one block runs K whole steps of a
+// case with every field in shared memory (12 padded arrays: 6.9 KB at
+// 12x12, at most 227 KB), synchronising with __syncthreads() only. One
+// launch per K steps; the host reads res[3] and counts[3] once per launch.
+// All threads carry the same loop state (it is computed from block sums),
+// so they take the same branches and reach the same barriers. Every loop
+// is bounded by K, max_iter (inner sweeps) or a size. The launch runs a
+// case axis, one block per listed case, each with its own nu (the
+// data-generation sweep's vmapped pallas_call): at 10x10 or 50x50 a block
+// holds one SM's shared memory, so n cases take one launch on n SMs where
+// a loop over the cases takes n launches on one. A solver's single case is
+// the same launch with no list: one block, case 0.
 //
 // Design (b), for grids past (a)'s shared memory and for the multigrid
 // pressure mode: each momentum loop on the fused momentum pass
@@ -244,6 +249,13 @@ __device__ void block_bc(float* f, int var, const StepParams& c,
   for (int k = threadIdx.x; k < n; k += blockDim.x) bc_cell(f, k, var, c, u_in, below);
 }
 
+// Design (a) over a case axis, the counterpart of JAX's vmapped
+// pallas_call (the sweep's batched_cavity_solve): the fields are stacked
+// (n, nx2, ny2), the fluxes (n, nx, ny), nu (n), res and counts (n, 3);
+// block b runs case cases[b] (case 0 when cases is null) with every
+// pointer offset by that case and the same body, so a case's result does
+// not depend on the others. Cases not listed are not touched. The inlet
+// profile is shared by all cases.
 __global__ void __launch_bounds__(SRCFD_THREADS)
 step_small_kernel(const float* __restrict__ u_g, const float* __restrict__ v_g,
                   const float* __restrict__ p_g, const float* __restrict__ fe_g,
@@ -254,11 +266,32 @@ step_small_kernel(const float* __restrict__ u_g, const float* __restrict__ v_g,
                   float* __restrict__ p_o, float* __restrict__ fe_o,
                   float* __restrict__ fn_o, float* __restrict__ fw_o,
                   float* __restrict__ fs_o, float* __restrict__ res_o,
-                  int* __restrict__ cnt_o) {
+                  int* __restrict__ cnt_o, const int* __restrict__ cases) {
   extern __shared__ float smem[];
   __shared__ float sh[SRCFD_THREADS];
   const int nx2 = c.nx2, ny2 = c.ny2, nx = nx2 - 2, ny = ny2 - 2;
   const int N = nx2 * ny2, n_cells = nx * ny;
+  {
+    const long long b = cases != nullptr ? cases[blockIdx.x] : 0;
+    const long long field = b * N, flux = b * n_cells;
+    u_g += field;
+    v_g += field;
+    p_g += field;
+    u_o += field;
+    v_o += field;
+    p_o += field;
+    fe_g += flux;
+    fn_g += flux;
+    fw_g += flux;
+    fs_g += flux;
+    fe_o += flux;
+    fn_o += flux;
+    fw_o += flux;
+    fs_o += flux;
+    nu_g += b;
+    res_o += 3 * b;
+    cnt_o += 3 * b;
+  }
   float* su = smem;
   float* sv = su + N;
   float* sp = sv + N;
@@ -590,23 +623,31 @@ int srcfd_step_small_fits(int nx2, int ny2) {
   return small_smem_bytes(nx2, ny2) <= kSmallSmemMax;
 }
 
-int srcfd_step_small(const float* u, const float* v, const float* p,
-                     const float* fe, const float* fn, const float* fw,
-                     const float* fs, const float* u_in, const float* below,
-                     const float* nu, const StepParams* c, float* u_o,
-                     float* v_o, float* p_o, float* fe_o, float* fn_o,
-                     float* fw_o, float* fs_o, float* res, int* counts,
-                     void* stream) {
+// allows the design (a) kernel the most dynamic shared memory a grid
+// that fits takes; called once per process, before any launch
+int srcfd_step_small_init() {
+  return (int)cudaFuncSetAttribute(step_small_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)kSmallSmemMax);
+}
+
+// design (a): one block for each of the n_cases entries of `cases`
+// (indices into the stacked arrays), or with cases null one block on case
+// 0 of unstacked arrays (n_cases must be 1); no launch for n_cases = 0
+int srcfd_step_small_batched(const float* u, const float* v, const float* p,
+                             const float* fe, const float* fn, const float* fw,
+                             const float* fs, const float* u_in, const float* below,
+                             const float* nu, const StepParams* c, float* u_o,
+                             float* v_o, float* p_o, float* fe_o, float* fn_o,
+                             float* fw_o, float* fs_o, float* res, int* counts,
+                             const int* cases, int n_cases, void* stream) {
   const size_t smem = small_smem_bytes(c->nx2, c->ny2);
-  if (smem > kSmallSmemMax) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        step_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  step_small_kernel<<<1, SRCFD_THREADS, smem, (cudaStream_t)stream>>>(
+  if (smem > kSmallSmemMax || n_cases < 0 || (cases == nullptr && n_cases != 1))
+    return (int)cudaErrorInvalidValue;
+  if (n_cases == 0) return 0;
+  step_small_kernel<<<n_cases, SRCFD_THREADS, smem, (cudaStream_t)stream>>>(
       u, v, p, fe, fn, fw, fs, u_in, below, nu, *c, u_o, v_o, p_o, fe_o, fn_o,
-      fw_o, fs_o, res, counts);
+      fw_o, fs_o, res, counts, cases);
   return (int)cudaGetLastError();
 }
 

@@ -14,13 +14,22 @@ inside, the modules work in PyTorch's NCHW. Padding follows Flax/Keras:
   are flipped spatially (see `io/checkpoint.params_from_jax`).
 
 swish == silu. Latent dim 50 by default.
+
+`flax_init_` initialises a module as Flax's `init` does by default:
+every Conv, ConvTranspose and Dense kernel from `lecun_normal` (a normal
+truncated at two standard deviations, scaled to variance 1/fan_in, fan_in
+= kernel height x width x input channels, or the input features), every
+bias zero. The draws come from an explicit `torch.Generator`, so they are
+not JAX's numbers; the distribution is. PyTorch's own default
+(kaiming-uniform weights and biases) would train to another result.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Mapping, Tuple, Union
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -169,3 +178,47 @@ class SuperResolutionAE(nn.Module):
     def forward(self, x):
         y = self.decoder_hr(self.encoder_lr(x.permute(0, 3, 1, 2)))
         return y.permute(0, 2, 3, 1)
+
+
+# jax.nn.initializers.variance_scaling: the standard deviation of a
+# standard normal truncated to [-2, 2]
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise every convolution, transposed convolution and linear
+    layer of `module` in place as Flax's defaults do (lecun_normal kernels,
+    zero biases), drawing from `generator`; returns the module."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.ConvTranspose2d):  # (in, out, kh, kw)
+                fan_in = m.weight.shape[0] * m.weight.shape[2] * m.weight.shape[3]
+            elif isinstance(m, nn.Conv2d):  # (out, in, kh, kw)
+                fan_in = m.weight[0].numel()
+            elif isinstance(m, nn.Linear):  # (out, in)
+                fan_in = m.weight.shape[1]
+            else:
+                continue
+            nn.init.trunc_normal_(m.weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            m.weight.mul_(math.sqrt(1.0 / fan_in) / _TRUNCATED_STD)
+            nn.init.zeros_(m.bias)
+    return module
+
+
+def build_encoder(resolution: int, latent_dim: int = LATENT_DIM) -> Encoder:
+    return Encoder(resolution, latent_dim)
+
+
+def build_decoder(resolution: int, latent_dim: int = LATENT_DIM) -> Decoder:
+    return Decoder(resolution, latent_dim)
+
+
+def param_count(params: Union[nn.Module, Mapping]) -> int:
+    """Number of parameters of a module, a state_dict or a (nested) Flax
+    parameter tree."""
+    if isinstance(params, nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    total = 0
+    for leaf in params.values():
+        total += param_count(leaf) if isinstance(leaf, Mapping) else int(math.prod(leaf.shape))
+    return total

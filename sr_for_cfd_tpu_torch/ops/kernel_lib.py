@@ -59,7 +59,8 @@ SIGNATURES = {
     "srcfd_mg_tail_init": (_I, []),
     "srcfd_mg_tail": (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
     "srcfd_step_small_fits": (_I, [_I, _I]),
-    "srcfd_step_small": (_I, [_P] * 21),
+    "srcfd_step_small_init": (_I, []),
+    "srcfd_step_small_batched": (_I, [_P] * 21 + [_I, _P]),
     "srcfd_step_mom_partials": (_I, [_I, _I]),
     "srcfd_step_proj_partials": (_I, [_I, _I]),
     "srcfd_step_mom_half": (_I, [_P] * 9 + [_I, _P, _P]),
@@ -171,9 +172,10 @@ def build(force: bool = False, verbose: bool = False) -> float:
 
 def load_library() -> ctypes.CDLL:
     """The kernel library, built if needed, with argtypes set and the
-    dynamic shared memory of the V-cycle tail, of the tiled red-black
-    kernel's fused form, of the fused momentum pass and of the fused
-    streamed passes allowed (before any launch or graph capture)."""
+    dynamic shared memory of the V-cycle tail, of the fused step's design
+    (a), of the tiled red-black kernel's fused form, of the fused momentum
+    pass and of the fused streamed passes allowed (before any launch or
+    graph capture)."""
     global _lib
     with _lock:
         if _lib is None:
@@ -184,6 +186,7 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = restype
                 fn.argtypes = argtypes
             check(lib.srcfd_mg_tail_init(), "mg_tail_init")
+            check(lib.srcfd_step_small_init(), "step_small_init")
             check(lib.srcfd_shard_rb_init(), "shard_rb_init")
             check(lib.srcfd_mom_pass_init(), "mom_pass_init")
             check(lib.srcfd_stream_pass_init(), "stream_pass_init")

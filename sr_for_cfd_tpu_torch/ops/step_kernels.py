@@ -38,6 +38,12 @@ on the 12x12 coarse grid, ~2 MB per sweep at 400x400, inside the L2.
   launch per momentum half-sweep with a finalize and a host read per
   check, and a launch per relaxation, boundary fill, projection and sum)
   stays as the card gates' bit-equality reference.
+* Design (a) over a case axis (`simple_step_small_batched`, the
+  data-generation sweep's counterpart of JAX's vmapped `pallas_call`):
+  one launch for every listed case of a stacked batch, a block per case
+  with its own nu, each block running (a)'s body on its case; the cases
+  not listed keep their inputs. At 10x10 or 50x50 a case's block holds
+  one SM, so 8 cases take one launch on 8 SMs.
 No design waits on another block; every loop is bounded by K, max_iter,
 MG_MAX_CYCLES or a size.
 
@@ -52,9 +58,10 @@ multigrid mode's frozen-ghost right-hand side.
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernels or raises. `simple_step_kernel.launches` counts the
 launches of `fused_step.cu` and `mom_pass.cu` kernels (no-op ones
-included; the pressure stage of (b) counts on its own wrappers),
-`.reads` the host reads of the momentum loops' rms or state, `.calls` the
-calls on the card.
+included; the pressure stage of (b) counts on its own wrappers; a
+batched launch counts once), `.reads` the host reads of the momentum
+loops' rms or state, `.calls` the calls on the card;
+`simple_step_small_batched.launches` counts the batched launches alone.
 """
 
 from __future__ import annotations
@@ -275,9 +282,9 @@ def _small(lib, u, v, p, ff, prm, u_in, below, nu, stream) -> StepResult:
     fouts = [torch.empty_like(t) for t in ff]
     res = torch.empty(3, dtype=torch.float32, device=u.device)
     counts = torch.empty(3, dtype=torch.int32, device=u.device)
-    _launch(lib.srcfd_step_small(
+    _launch(lib.srcfd_step_small_batched(
         *map(_ptr, (u, v, p, *ff, u_in, below, nu)), ctypes.addressof(prm),
-        *map(_ptr, (*outs, *fouts, res, counts)), stream), "step_small")
+        *map(_ptr, (*outs, *fouts, res, counts)), None, 1, stream), "step_small")
     return (*outs, FaceFluxes(*fouts), res, [int(x) for x in counts.tolist()])
 
 
@@ -494,6 +501,77 @@ def simple_step_kernel(u, v, p, ff: FaceFluxes, case: CaseConfig,
 simple_step_kernel.launches = 0
 simple_step_kernel.reads = 0
 simple_step_kernel.calls = 0
+
+
+# design (a)'s shared memory (`fused_step.cu:small_smem_bytes`) and its
+# limit (`kSmallSmemMax`: the 227 KB a block may take, less the kernel's
+# reduction scratch), for the routing on the CPU
+SMALL_SMEM_MAX = 232448 - 2 * 256 * 4
+
+
+def small_fits(nx2: int, ny2: int) -> bool:
+    """`srcfd_step_small_fits` in Python: design (a) takes a padded
+    (nx2, ny2) grid."""
+    return (12 * nx2 * ny2 + 2 * ny2) * 4 <= SMALL_SMEM_MAX
+
+
+def simple_step_small_batched(u, v, p, ff: FaceFluxes, case: CaseConfig,
+                              profile: Optional[BFSInletProfile], nu,
+                              cases) -> StepResult:
+    """Design (a) over a case axis: `steps_per_kernel` steps of each listed
+    case in one launch, a block per case (`srcfd_step_small_batched`).
+
+    u, v, p are stacked (n, nx+2, ny+2), the face fluxes (n, nx, ny), nu
+    (n,); `cases` lists the indices to run. Returns (u, v, p, ff, res
+    (n, 3), counts (n, 3)) as tensors on the fields' device, with the
+    inputs of the cases not listed (and zero res and counts there): JAX's
+    `jnp.where(active, new, old)` over the vmapped step. Only
+    point-iteration grids that fit one block's shared memory. On a CPU
+    tensor the plain version runs each listed case in turn."""
+    n = u.shape[0]
+    cases = [int(b) for b in cases]
+    if any(b < 0 or b >= n for b in cases) or len(set(cases)) != len(cases):
+        raise ValueError(f"case indices must be distinct and in [0, {n}), got {cases}")
+    nx2, ny2 = u.shape[1:]
+    if case.settings.pressure_solver == "multigrid" or not small_fits(nx2, ny2):
+        raise ValueError("the batched step runs design (a): the point-iteration "
+                         "pressure mode on grids that fit one block's shared memory")
+    outs = [t.clone() for t in (u, v, p)]
+    fouts = [t.clone() for t in ff]
+    res = torch.zeros((n, 3), dtype=u.dtype, device=u.device)
+    counts = torch.zeros((n, 3), dtype=torch.int32, device=u.device)
+    if u.device.type == "cpu":
+        for b in cases:
+            out = simple_step_plain(u[b], v[b], p[b], FaceFluxes(*(t[b] for t in ff)),
+                                    case, profile, nu=nu[b])
+            for dst, src in zip((*outs, *fouts), (*out[:3], *out[3])):
+                dst[b] = src
+            res[b] = out[4]
+            counts[b] = torch.tensor(out[5], dtype=torch.int32)
+        return (*outs, FaceFluxes(*fouts), res, counts)
+    for name, t in (("u", u), ("v", v), ("p", p)):
+        kernel_lib.check_field(t, f"batched fused-step ({name})", shape=(n, nx2, ny2))
+    for t in ff:
+        kernel_lib.check_field(t, "batched fused-step (face fluxes)",
+                               shape=(n, nx2 - 2, ny2 - 2))
+    nu = nu.to(device=u.device, dtype=torch.float32).reshape(n).contiguous()
+    if not cases:
+        return (*outs, FaceFluxes(*fouts), res, counts)
+    lib = kernel_lib.load_library()
+    prm = step_params(case, profile is not None)
+    u_in, below = _inlet(profile, u[0])
+    idx = torch.tensor(cases, dtype=torch.int32).to(u.device, non_blocking=True)
+    kernel_lib.check(lib.srcfd_step_small_batched(
+        *map(_ptr, (u, v, p, *ff, u_in, below, nu)), ctypes.addressof(prm),
+        *map(_ptr, (*outs, *fouts, res, counts, idx)), len(cases),
+        kernel_lib.stream_ptr(u.device)), "step_small_batched")
+    simple_step_small_batched.launches += 1
+    simple_step_kernel.launches += 1
+    simple_step_kernel.calls += 1
+    return (*outs, FaceFluxes(*fouts), res, counts)
+
+
+simple_step_small_batched.launches = 0
 # 'b' makes every call through the solver take design (b): the tests and
 # chip_smoke.py drive (b) at small sizes with it
 simple_step_kernel.force_design = None

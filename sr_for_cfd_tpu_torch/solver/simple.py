@@ -319,6 +319,22 @@ def run_chunk(state: SolverState, profile: Optional[BFSInletProfile],
     return state
 
 
+def run_to_convergence(state: SolverState, profile: Optional[BFSInletProfile],
+                       case: CaseConfig, nu=None) -> SolverState:
+    """The whole solve as one host loop of `simple_step` (each call
+    `steps_per_kernel` steps with `fused_step`) until the state is
+    converged, diverged or at `max_iterations`; no detectors, as in the
+    JAX package's single `while_loop`. `nu` overrides the viscosity (the
+    sweep's per-case nu)."""
+    max_iterations = case.settings.max_iterations
+    # every call advances the count by at least one step
+    for _ in range(max_iterations + 1):
+        if not _active(state, max_iterations):
+            break
+        state = simple_step(state, case, profile, nu=nu)
+    return state
+
+
 class ResidualHistory:
     """Residual trace sampled once per chunk."""
 

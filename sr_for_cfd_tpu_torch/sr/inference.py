@@ -27,6 +27,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..models.autoencoder import LATENT_DIM, SuperResolutionAE, flax_init_
 from ..models.standardize import (
     COMPONENTS,
     STD_FLOOR,
@@ -89,6 +90,31 @@ class SRModel:
     def __init__(self, lr_dim: int, hr_dim: int, module: torch.nn.Module):
         self.lr_dim, self.hr_dim = lr_dim, hr_dim
         self.module = module
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The module's weights (its `state_dict`)."""
+        return self.module.state_dict()
+
+    @classmethod
+    def create(cls, lr_dim: int, hr_dim: int, params: Optional[Dict] = None,
+               latent_dim: int = LATENT_DIM, rng_seed: int = 0,
+               device="cuda") -> "SRModel":
+        """A model with `params` (a `state_dict`, or a Flax parameter tree
+        as `params_from_jax` takes it), else freshly initialised as Flax
+        initialises it, drawn from a generator seeded with `rng_seed`."""
+        from ..io.checkpoint import params_from_jax
+        from ..utils.device import resolve_device
+
+        module = SuperResolutionAE(lr_dim, hr_dim, latent_dim)
+        if params is None:
+            flax_init_(module, torch.Generator().manual_seed(rng_seed))
+        else:
+            tree = params.get("params", params)
+            if "encoder_lr" in tree:
+                params = params_from_jax(params, lr_dim, hr_dim)
+            module.load_state_dict(params)
+        return cls(lr_dim, hr_dim, module.to(resolve_device(device)).eval())
 
     @classmethod
     def from_checkpoint(cls, path: str, lr_dim: int, hr_dim: int,

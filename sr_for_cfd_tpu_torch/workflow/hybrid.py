@@ -24,7 +24,6 @@ import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
-from torch.profiler import record_function
 
 from ..config import BoundaryConditions
 from ..io.datfiles import extract_centerlines
@@ -36,20 +35,23 @@ from ..utils.naming import (
     create_timestamped_output_dir,
     fine_run_name,
 )
+from ..utils.timing import trace_annotation
 
 
 def kernel_launch_counts() -> Dict[str, int]:
     """Launch counters of the CUDA kernel wrappers (kernels run, a graph
     replay counting its kernels), the SOR wrapper's calls by route, the
     V-cycle graphs' replays, the tiled loops' sweeps and host reads of
-    their device state, the fused step's calls and momentum host reads,
-    and the RRE jumps attempted and taken."""
+    their device state, the fused step's calls and momentum host reads
+    (its batched design (a) launches are counted in `fused_step` too, and
+    alone in `fused_step_batched`), and the RRE jumps attempted and
+    taken."""
     from ..ops import stream_kernels as sk
     from ..ops.extrapolate import rre_extrapolate
     from ..ops.mg_kernels import mg_solve_pressure_kernel
     from ..ops.momentum_kernels import tiled_solve_momentum
     from ..ops.pressure_kernels import solve_pressure_kernel
-    from ..ops.step_kernels import simple_step_kernel
+    from ..ops.step_kernels import simple_step_kernel, simple_step_small_batched
     from ..ops.tiled_kernels import tiled_solve_pressure
     from ..parallel.spmd_kernels import shard_rb_sweep
 
@@ -59,6 +61,7 @@ def kernel_launch_counts() -> Dict[str, int]:
             "fused_step": simple_step_kernel.launches,
             "fused_step_reads": simple_step_kernel.reads,
             "fused_step_calls": simple_step_kernel.calls,
+            "fused_step_batched": simple_step_small_batched.launches,
             "tiled_momentum": tiled_solve_momentum.launches,
             "tiled_momentum_sweeps": tiled_solve_momentum.sweeps,
             "tiled_momentum_reads": tiled_solve_momentum.reads,
@@ -291,7 +294,7 @@ def run_hybrid_experiment(
 
     launches = {}
     before = kernel_launch_counts()
-    with record_function("hybrid.coarse"):
+    with trace_annotation("hybrid.coarse"):
         coarse_fields, coarse_solver, coarse_iters, coarse_time = \
             run_coarse_simulation(
                 Re, lr_dim=lr_dim, dt=dt, scheme=scheme,
@@ -303,7 +306,7 @@ def run_hybrid_experiment(
     before = kernel_launch_counts()
     ml_name = fine_run_name(run_dir, prefix, Re, hr_dim, hr_dim,
                             max_iterations_coarse, max_iterations_ml, "ML")
-    with record_function("hybrid.ml_fine"):
+    with trace_annotation("hybrid.ml_fine"):
         ml_solver, ml_iters, ml_time, hr_fields = \
             run_ml_accelerated_fine_simulation(
                 Re, hr_dim, hr_dim, coarse_fields, lr_dim=lr_dim,
@@ -321,7 +324,7 @@ def run_hybrid_experiment(
     before = kernel_launch_counts()
     normal_name = fine_run_name(run_dir, prefix, Re, hr_dim, hr_dim, None,
                                 max_iterations_normal, "NORMAL")
-    with record_function("hybrid.normal_fine"):
+    with trace_annotation("hybrid.normal_fine"):
         normal_solver, normal_iters, normal_time = run_normal_simulation(
             Re, hr_dim, hr_dim, dt=dt, scheme=scheme,
             max_iterations=max_iterations_normal, output_name=normal_name,

@@ -1089,3 +1089,149 @@ def test_stream_wrappers_raise_on_what_the_fused_passes_do_not_take(card):
         sk.stream_pass_b(x, b.double(), e, lv)
     with pytest.raises(ValueError):
         sk.stream_pass_b(x, b, e[:-2].contiguous(), lv)
+
+
+# ---- row 3, design (a) over a case axis (the sweep's batched launch) -------
+
+
+def _case_batch(card, n_side, k, reynolds, seeded=True):
+    """The sweep's stacked state: one double-lid QUICK cavity per Reynolds
+    number (dt 1e-3, float32, K steps a launch), each warm-started from
+    its own seeded field; returns (solver of the first case, u, v, p, ff,
+    nu)."""
+    from sr_for_cfd_tpu_torch.ops.stencil import FaceFluxes
+
+    states = []
+    for i, re in enumerate(reynolds):
+        s = make_cavity_solver(Re=re, nx=n_side, ny=n_side, dt=1e-3, scheme="QUICK",
+                               double_lid=True, dtype="float32", fused_step=True,
+                               steps_per_kernel=k, chunk_size=k, device=card)
+        if seeded:
+            g = np.random.default_rng(1000 + i)
+            s.warm_start({c: g.standard_normal((n_side, n_side)) * 0.1 for c in "uvp"})
+        states.append(s)
+    st = [s.state for s in states]
+    u, v, p = (torch.stack([getattr(x, c) for x in st]).contiguous() for c in "uvp")
+    ff = FaceFluxes(*(torch.stack([x.ff[i] for x in st]).contiguous() for i in range(4)))
+    nu = torch.tensor([1.0 / re for re in reynolds], dtype=torch.float32, device=card)
+    return states[0], u, v, p, ff, nu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_side,k", [(10, 50), (50, 4)])
+def test_batched_step_is_bit_equal_to_single_launches(card, n_side, k):
+    """Eight cases (Re 100..800), one masked out: each listed case's fields,
+    fluxes, res and counts bit-equal to its own single design (a) launch;
+    the masked case's inputs come back unchanged, its res and counts 0;
+    one launch counted."""
+    from sr_for_cfd_tpu_torch.ops.step_kernels import simple_step_small_batched
+
+    re_list = list(range(100, 801, 100))
+    s0, u, v, p, ff, nu = _case_batch(card, n_side, k, re_list)
+    masked = 5
+    listed = [b for b in range(8) if b != masked]
+    before = (simple_step_small_batched.launches, simple_step_kernel.launches,
+              simple_step_kernel.calls)
+    out = simple_step_small_batched(u, v, p, ff, s0.case, s0.profile, nu, listed)
+    torch.cuda.synchronize()
+    assert (simple_step_small_batched.launches - before[0],
+            simple_step_kernel.launches - before[1],
+            simple_step_kernel.calls - before[2]) == (1, 1, 1)
+    for b in listed:
+        one = simple_step_kernel(u[b], v[b], p[b], type(ff)(*(t[b] for t in ff)),
+                                 s0.case, s0.profile, nu=nu[b], _design="a")
+        for got, want in zip((*out[:3], *out[3]), (*one[:3], *one[3])):
+            assert torch.equal(got[b], want)
+        assert torch.equal(out[4][b], one[4])
+        assert out[5][b].tolist() == one[5]
+        ref = simple_step_plain(u[b], v[b], p[b], type(ff)(*(t[b] for t in ff)),
+                                s0.case, s0.profile, nu=nu[b])
+        for got, want in zip((*out[:3], *out[3]), (*ref[:3], *ref[3])):
+            _close(got[b], want)
+        assert out[5][b].tolist() == ref[5]
+    for got, want in zip((*out[:3], *out[3]), (u, v, p, *ff)):
+        assert torch.equal(got[masked], want[masked])
+    assert not out[4][masked].any() and not out[5][masked].any()
+
+
+@pytest.mark.cuda
+def test_batched_step_empty_and_wide_case_lists(card):
+    """An empty list launches nothing and returns the inputs; 140 cases
+    (more than the card's 132 SMs) are each bit-equal to their single
+    launch."""
+    from sr_for_cfd_tpu_torch.ops.step_kernels import simple_step_small_batched
+
+    re_list = [100.0 + 5.0 * i for i in range(140)]
+    s0, u, v, p, ff, nu = _case_batch(card, 10, 4, re_list, seeded=False)
+    before = simple_step_small_batched.launches
+    out = simple_step_small_batched(u, v, p, ff, s0.case, s0.profile, nu, [])
+    assert simple_step_small_batched.launches == before
+    for got, want in zip((*out[:3], *out[3]), (u, v, p, *ff)):
+        assert torch.equal(got, want)
+    out = simple_step_small_batched(u, v, p, ff, s0.case, s0.profile, nu, range(140))
+    for b in range(140):
+        one = simple_step_kernel(u[b], v[b], p[b], type(ff)(*(t[b] for t in ff)),
+                                 s0.case, s0.profile, nu=nu[b], _design="a")
+        for got, want in zip((*out[:3], *out[3]), (*one[:3], *one[3])):
+            assert torch.equal(got[b], want)
+        assert torch.equal(out[4][b], one[4]) and out[5][b].tolist() == one[5]
+
+
+@pytest.mark.cuda
+def test_batched_step_fit_rule_matches_the_library(card):
+    """The Python twin of srcfd_step_small_fits routes the sweep on the CPU;
+    it must agree with the C rule."""
+    from sr_for_cfd_tpu_torch.ops import kernel_lib
+    from sr_for_cfd_tpu_torch.ops.step_kernels import small_fits
+
+    lib = kernel_lib.load_library()
+    for nx2 in range(3, 140, 7):
+        for ny2 in range(3, 140, 5):
+            assert small_fits(nx2, ny2) == bool(lib.srcfd_step_small_fits(nx2, ny2))
+
+
+@pytest.mark.cuda
+def test_batched_step_raises_on_what_the_kernel_does_not_take(card):
+    from sr_for_cfd_tpu_torch.ops.step_kernels import simple_step_small_batched
+
+    s0, u, v, p, ff, nu = _case_batch(card, 10, 1, [100, 200])
+    rest = (s0.case, s0.profile, nu)
+    with pytest.raises(ValueError, match="indices"):
+        simple_step_small_batched(u, v, p, ff, *rest, [0, 2])
+    with pytest.raises(ValueError, match="indices"):
+        simple_step_small_batched(u, v, p, ff, *rest, [1, 1])
+    with pytest.raises(ValueError, match="float32"):
+        simple_step_small_batched(u.double(), v, p, ff, *rest, [0])
+    big = _case_batch(card, 80, 1, [100])
+    with pytest.raises(ValueError, match="design"):
+        simple_step_small_batched(*big[1:5], big[0].case, big[0].profile, big[5], [0])
+
+
+@pytest.mark.cuda
+def test_training_step_on_the_card_matches_the_cpu(card):
+    """One MSE + Adam step of the 10 -> 400 autoencoder on the card and on
+    the CPU from the same weights, Adam moments (3 steps first) and batch,
+    TF32 off: the loss within 1e-4 relative, the weights within 1e-5 of
+    the largest |weight|."""
+    import copy
+
+    from sr_for_cfd_tpu_torch.sr.inference import SRModel, _no_tf32
+    from sr_for_cfd_tpu_torch.workflow import training as tr
+
+    module = SRModel.create(10, 400, rng_seed=3, device=card).module
+    g = np.random.default_rng(4)
+    x = torch.tensor(g.standard_normal((8, 10, 10, 1)), dtype=torch.float32, device=card)
+    y = torch.tensor(g.standard_normal((8, 400, 400, 1)), dtype=torch.float32, device=card)
+    opt = tr.Adam(list(module.parameters()))
+    with _no_tf32():
+        for _ in range(3):
+            tr.train_step(module, opt, x, y)
+        out = {}
+        for on in ("cpu", card):
+            m = copy.deepcopy(module).to(on)
+            loss = tr.train_step(m, opt.to(on), x.to(on), y.to(on))
+            out[str(on)] = (float(loss), [p.detach().cpu() for p in m.parameters()])
+    (lc, pc), (lg, pg) = out["cpu"], out[str(card)]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    scale = max(float(p.abs().max()) for p in pc)
+    assert max(float((a - b).abs().max()) for a, b in zip(pg, pc)) <= 1e-5 * scale
