@@ -158,11 +158,37 @@ no result line:
    training step on the card against the CPU (TF32 off; loss within 1e-4
    relative, weights within 1e-5 of the largest) and twice on the card
    (bit-equal or not, printed).
+8. CLI and persistence, after 6; its launches are printed on a line of
+   their own and not added to the kernels line. 8a: `cli.main(["hybrid",
+   ...])` for the BFS Re=400 hybrid at full width (the shipped 10->400
+   autoencoder, `--fused --pressure-solver multigrid --steps-per-kernel
+   10` on every phase, budgets 2000 / 300 / 300, output to a temporary
+   directory), its results JSON parsed: row 3 must launch in every phase
+   and row 2 in both fine phases; then `run_hybrid_experiment` with the
+   same arguments; both under deterministic cuDNN. The coarse and cold
+   iteration counts must be equal; the warm phase's iterations, V-cycle
+   replays and momentum host reads of both runs are printed. Each
+   phase's two .dat files must be written, and where h5py or matplotlib
+   is missing one skip line per skipped writer printed (and none of its
+   files written); the seconds of each `_full.dat` write are printed
+   beside the phases' solve seconds. 8b: the 400x400 BFS on the same
+   fused multigrid configuration (chunk 100) solved to 200 steps with
+   `snapshot_every=100` and `profile_dir`: the snapshot bit-equal to the
+   solver's state at 200, a new solver `resume_from` it starting at 200
+   and running to 300 with finite fields and rows 2 and 3 launched, the
+   trace naming fused-step and V-cycle kernels; the same at 48x48 (cavity,
+   60 + 60 steps) on the card and on the CPU's plain path: equal counts,
+   fields within 1e-4 relative. 8c: `SRModel.from_parts` on the shipped
+   .msgpack parts predicting bit-equal to `from_checkpoint` of the
+   combined file under deterministic cuDNN, and on the .h5 parts raising
+   an ImportError that names h5py where h5py is missing (loading
+   bit-equal where it is installed).
 
 The last lines are a `{"kernels": [...]}` line, the card's name and power
 limit as nvidia-smi prints them, and `{"ok": true, "device": {...}}`.
 """
 
+import importlib
 import json
 import math
 import os
@@ -2309,6 +2335,308 @@ def big_grid_reference(device):
         f"{worst:.3e} (limit 1e-4)")
 
 
+# phase 8: the command line and persistence. The CLI's hybrid: the shipped
+# 10->400 BFS autoencoder, the fused step in multigrid mode on every phase
+# (design (b), rows 3 and 2), K = 10, no RRE
+CLI_HYBRID = ["hybrid", "--case", "bfs", "--re", "400", "--lr-dim", "10", "--hr-dim", "400",
+              "--fused", "--pressure-solver", "multigrid", "--steps-per-kernel", "10",
+              "--model-file", MODEL_FILE, "--stats-file", STATS_FILE,
+              "--max-iterations", "2000", "--ml-iterations", "300",
+              "--normal-iterations", "300"]
+# the same run as run_hybrid_experiment's arguments (cli.cmd_hybrid's mapping)
+LIB_HYBRID = dict(Re=400.0, lr_dim=10, hr_dim=400, case="bfs", max_iterations_coarse=2000,
+                  max_iterations_ml=300, max_iterations_normal=300, stats_file=STATS_FILE,
+                  model_file=MODEL_FILE, use_aspect_ratio_correction=True,
+                  use_adaptive_normalization=False, blend_factor=0.3, dt=None, scheme=None,
+                  dtype="float32", fused_step=True, pressure_sor=1.0,
+                  pressure_solver="multigrid", steps_per_kernel=10, use_pallas=False)
+# 8b: a 400^2 BFS solve on the same fused multigrid configuration
+RESUME = dict(Re=400, nx=400, ny=400, dt=2e-3, scheme="UPWIND", dtype="float32",
+              fused_step=True, pressure_solver="multigrid", steps_per_kernel=10,
+              chunk_size=100)
+RESUME_STEPS = (200, 300)  # snapshot at the end of the first solve; resumed to the second
+SNAPSHOT_EVERY = 100
+# 8b at a small size on the card and on the CPU (phase 6's rule)
+RESUME_SMALL = dict(Re=100, nx=48, ny=48, dt=1e-3, scheme="QUICK", dtype="float32",
+                    fused_step=True, pressure_solver="multigrid", steps_per_kernel=10,
+                    chunk_size=60)
+RESUME_SMALL_STEPS = (60, 120)
+PART_FILES = {"msgpack": ("artifacts/vanilla_encoder10_to_400_swish_tpu_bfs.msgpack",
+                          "artifacts/vanilla_decoder400_from_10_swish_tpu_bfs.msgpack"),
+              "h5": ("artifacts/vanilla_encoder10_to_400_swish_tpu_bfs.h5",
+                     "artifacts/vanilla_decoder400_from_10_swish_tpu_bfs.h5")}
+
+
+def importable(package):
+    try:
+        importlib.import_module(package)
+    except ImportError:
+        return False
+    return True
+
+
+class DatWrites:
+    """Records the seconds of every `_full.dat` write while it is entered
+    (a wrapper around io.datfiles.save_full_field, which
+    io.results.save_all_results looks up at each call)."""
+
+    def __enter__(self):
+        from sr_for_cfd_tpu_torch.io import datfiles
+
+        self.writes, self.save = [], datfiles.save_full_field
+        writes, save = self.writes, self.save
+
+        def timed_save(filename, var, *a, **k):
+            t = time.perf_counter()
+            save(filename, var, *a, **k)
+            writes.append((os.path.basename(filename), var.shape, time.perf_counter() - t))
+
+        datfiles.save_full_field = timed_save
+        return self
+
+    def __exit__(self, *exc):
+        from sr_for_cfd_tpu_torch.io import datfiles
+
+        datfiles.save_full_field = self.save
+
+
+def cli_hybrid(device, out_dir):
+    """8a's CLI run through `cli.main`, its standard output captured:
+    (the results JSON, the output lines, the .dat writes)."""
+    import contextlib
+    import io
+
+    from sr_for_cfd_tpu_torch import cli
+
+    buf = io.StringIO()
+    reset_counters()
+    with DatWrites() as dat, contextlib.redirect_stdout(buf):
+        cli.main(CLI_HYBRID + ["--out", out_dir, "--device", device])
+    text = buf.getvalue()
+    start = text.rfind("\n{\n")
+    if start < 0:
+        fail("the CLI hybrid printed no results JSON")
+    return json.loads(text[start + 1:]), text[:start].splitlines(), dat.writes
+
+
+def phase_cli_hybrid(device):
+    """8a: the BFS hybrid through the command line at full width, then
+    run_hybrid_experiment with the same arguments; both under
+    deterministic cuDNN. Returns the record printed on the phase's line."""
+    import torch
+
+    from sr_for_cfd_tpu_torch.workflow.hybrid import run_hybrid_experiment
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix="srcfd_cli_") as out_dir:
+            t = time.perf_counter()
+            res, lines, writes = cli_hybrid(device, out_dir)
+            cli_s = time.perf_counter() - t
+            files = sorted(os.listdir(out_dir))
+        with tempfile.TemporaryDirectory(prefix="srcfd_lib_") as out_dir:
+            reset_counters()
+            lib = run_hybrid_experiment(output_dir=out_dir, verbose=False, device=device,
+                                        **LIB_HYBRID)
+    finally:
+        cudnn.deterministic = saved
+    launches = res["kernel_launches"]
+    for phase in ("coarse", "ml", "normal"):
+        if launches[phase]["fused_step"] <= 0:
+            fail(f"CLI hybrid: the fused-step kernel did not launch in the {phase} phase")
+    for phase in ("ml", "normal"):
+        if launches[phase]["mg_vcycle_pressure"] <= 0:
+            fail(f"CLI hybrid: the V-cycle kernel did not launch in the {phase} phase")
+    for key in ("coarse_iterations", "normal_iterations"):
+        if res[key] != lib[key]:
+            fail(f"CLI hybrid: {key} {res[key]} differs from run_hybrid_experiment's "
+                 f"{lib[key]}")
+    # each phase's two .dat files; where h5py or matplotlib is missing, one
+    # skip line per skipped writer and none of its files
+    if sum(f.endswith(("_full.dat", "_centerline.dat")) for f in files) != 6:
+        fail(f"CLI hybrid: files written {files}")
+    for package, (starts, n, ends) in {
+            "h5py": (("  (HDF5 group skipped:",), 3, (".h5",)),
+            "matplotlib": (("  (plots skipped:", "  (centerline comparison plot skipped:"),
+                           4, (".png",))}.items():
+        if not importable(package):
+            skips = [ln for ln in lines if ln.startswith(starts) and package in ln]
+            if len(skips) != n or any(f.endswith(ends) for f in files):
+                fail(f"CLI hybrid: {len(skips)} skip lines naming {package}, not {n}, "
+                     f"or its files written: {files}")
+    phase_s = {ph: res[f"{ph}_time"] for ph in ("coarse", "ml", "normal")}
+    warm = {"cli": (res["ml_iterations"], launches["ml"]["mg_vcycle_replays"],
+                    launches["ml"]["fused_step_reads"]),
+            "library": (lib["ml_iterations"], lib["kernel_launches"]["ml"]["mg_vcycle_replays"],
+                        lib["kernel_launches"]["ml"]["fused_step_reads"])}
+    log(f"  CLI hybrid: {cli_s:.1f} s in all; iterations coarse / warm / cold "
+        f"{res['coarse_iterations']} / {res['ml_iterations']} / {res['normal_iterations']}, "
+        f"the library's {lib['coarse_iterations']} / {lib['ml_iterations']} / "
+        f"{lib['normal_iterations']}; ms/iter CLI {res['ms_per_iteration']}, library "
+        f"{lib['ms_per_iteration']}")
+    log(f"  CLI hybrid warm phase (iterations, V-cycle replays, momentum host reads) "
+        f"under deterministic cuDNN: CLI {warm['cli']}, library {warm['library']}, "
+        f"equal: {warm['cli'] == warm['library']}")
+    log(f"  CLI hybrid files: {files}")
+    for ln in lines:
+        if "skipped:" in ln:
+            log(f"  CLI hybrid printed: {ln.strip()}")
+    log(f"  CLI hybrid _full.dat writes (file, Var shape, s): {writes}; phase solve s "
+        f"{phase_s}")
+    return dict(launches={ph: {k: launches[ph][k] for k in
+                               ("fused_step", "fused_step_reads", "mg_vcycle_pressure",
+                                "mg_vcycle_replays")} for ph in launches},
+                iterations=[res[f"{ph}_iterations"] for ph in ("coarse", "ml", "normal")],
+                library_iterations=[lib[f"{ph}_iterations"]
+                                    for ph in ("coarse", "ml", "normal")],
+                warm=warm, full_dat_s=[sec for _, _, sec in writes], phase_s=phase_s,
+                ms_per_iteration=res["ms_per_iteration"], seconds=cli_s)
+
+
+def snapshot_and_resume(device, make, kw, steps, base, profile_dir=None):
+    """A solve of make(**kw) to steps[0] with a snapshot every
+    SNAPSHOT_EVERY (or at steps[0]) iterations, then a new solver resumed
+    from the snapshot to steps[1]. Returns (first solver, snapshot path,
+    resumed solver, launches of the resumed solve)."""
+    from sr_for_cfd_tpu_torch.io.checkpoint import load_solver_count
+    from sr_for_cfd_tpu_torch.workflow.hybrid import _launches_since, kernel_launch_counts
+
+    every = min(SNAPSHOT_EVERY, steps[0])
+    first = make(device=device, max_iterations=steps[0], **kw)
+    first.precompile()
+    first.solve(base, verbose=False, save_results=False, snapshot_every=every,
+                profile_dir=profile_dir)
+    snap = f"{base}_snapshot.npz"
+    if first.state.count != steps[0] or load_solver_count(snap) != steps[0]:
+        fail(f"snapshot: count {load_solver_count(snap)}, solver {first.state.count}, "
+             f"wanted {steps[0]}")
+    resumed = make(device=device, max_iterations=steps[1], **kw)
+    resumed.resume_from(snap)
+    if resumed.state.count != steps[0]:
+        fail(f"resume: starts at {resumed.state.count}, not {steps[0]}")
+    before = kernel_launch_counts()
+    resumed.solve(verbose=False, save_results=False)
+    return first, snap, resumed, _launches_since(before)
+
+
+def trace_kernels(trace_dir):
+    """Names of the device kernels in the torch.profiler trace(s) under
+    trace_dir."""
+    import glob
+    import re
+
+    # Kineto writes each event's "cat" just before its "name"; a search of
+    # the text reads a trace of some 100 MiB far faster than json.load
+    kernel = re.compile(r'"cat":\s*"kernel",\s*"name":\s*"([^"]*)"')
+    names = set()
+    for path in glob.glob(os.path.join(trace_dir, "*.json")):
+        with open(path) as f:
+            names.update(kernel.findall(f.read()))
+    return names
+
+
+def phase_resume(device):
+    """8b: snapshot at 200 and resume to 300 on the 400^2 BFS (the solve
+    traced), and at 48^2 on the card against the CPU's plain path."""
+    import numpy as np
+
+    from sr_for_cfd_tpu_torch.solver.cases import make_bfs_solver, make_cavity_solver
+
+    with tempfile.TemporaryDirectory(prefix="srcfd_snap_") as tmp:
+        trace_dir = os.path.join(tmp, "trace")
+        t = time.perf_counter()
+        first, snap, resumed, launches = snapshot_and_resume(
+            device, make_bfs_solver, RESUME, RESUME_STEPS, os.path.join(tmp, "bfs"), profile_dir=trace_dir)
+        solve_s = time.perf_counter() - t
+        with np.load(snap) as data:
+            for k in "uvp":
+                if not np.array_equal(data[k], getattr(first.state, k).cpu().numpy()):
+                    fail(f"snapshot: {k} is not bit-equal to the solver's state")
+        t = time.perf_counter()
+        kernels = trace_kernels(trace_dir)
+        trace_s = time.perf_counter() - t
+        trace_mb = sum(os.path.getsize(os.path.join(trace_dir, f))
+                       for f in os.listdir(trace_dir)) / 2**20
+    if resumed.state.count != RESUME_STEPS[1] or not finite_fields(resumed):
+        fail(f"resume: count {resumed.state.count} or non-finite fields")
+    if launches["fused_step"] <= 0 or launches["mg_vcycle_pressure"] <= 0:
+        fail(f"resume: rows 3 and 2 did not both launch: {launches}")
+    step = sorted(n for n in kernels if n.startswith(("step_", "mom_pass")))
+    vcycle = sorted(n for n in kernels if n.startswith("mg_"))
+    if not step or not vcycle:
+        fail(f"trace: no fused-step or no V-cycle kernel among {sorted(kernels)}")
+    log(f"  snapshot at {RESUME_STEPS[0]} bit-equal to the solver's state; resumed "
+        f"{RESUME_STEPS[0]} -> {resumed.state.count} with launches "
+        f"fused_step {launches['fused_step']}, mg_vcycle_pressure "
+        f"{launches['mg_vcycle_pressure']}; both solves {solve_s:.1f} s; trace "
+        f"{trace_mb:.1f} MiB read in {trace_s:.1f} s, kernels {step + vcycle}")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="srcfd_snap_") as tmp:
+        for dev in (device, "cpu"):
+            first, _, resumed, _ = snapshot_and_resume(
+                dev, make_cavity_solver, RESUME_SMALL, RESUME_SMALL_STEPS, os.path.join(tmp, dev))
+            runs[dev] = (first.interior_fields(), resumed.state.count,
+                         resumed.interior_fields())
+    worst = 0.0
+    for stage, i in (("snapshot", 0), ("resumed", 2)):
+        if runs[device][1] != runs["cpu"][1]:
+            fail(f"48x48 resume: counts differ, card {runs[device][1]}, CPU {runs['cpu'][1]}")
+        for c in "uvp":
+            a, b = runs[device][i][c], runs["cpu"][i][c]
+            err = float(np.max(np.abs(a - b)))
+            scale = max(1.0, float(np.max(np.abs(b))))
+            worst = max(worst, err / scale)
+            if not (np.all(np.isfinite(a)) and err <= 1e-4 * scale):
+                fail(f"48x48 resume: {stage} {c} differs by {err:.3e}")
+    log(f"  48x48 snapshot -> resume card vs CPU: counts {RESUME_SMALL_STEPS}, worst "
+        f"relative field difference {worst:.3e} (limit 1e-4)")
+    return dict(solve_s=solve_s, trace_mb=trace_mb, trace_read_s=trace_s,
+                trace_kernels=step + vcycle, resumed_launches=launches,
+                small_worst=worst)
+
+
+def phase_model_parts(device):
+    """8c: SRModel.from_parts on the shipped .msgpack parts predicts
+    bit-equal to from_checkpoint(MODEL_FILE) under deterministic cuDNN; on
+    the .h5 parts it needs h5py."""
+    import numpy as np
+    import torch
+
+    from sr_for_cfd_tpu_torch.sr.inference import SRModel
+
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (3, 10, 10, 1)).astype(np.float32)).to(device)
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        whole = SRModel.from_checkpoint(MODEL_FILE, 10, 400, device=device).predict(x)
+        parts = SRModel.from_parts(*PART_FILES["msgpack"], 10, 400,
+                                   device=device).predict(x)
+        if not torch.equal(whole, parts):
+            fail("from_parts (.msgpack) does not predict bit-equal to from_checkpoint")
+        if not importable("h5py"):
+            try:
+                SRModel.from_parts(*PART_FILES["h5"], 10, 400, device=device)
+            except ImportError as e:
+                if "h5py" not in str(e):
+                    fail(f"from_parts (.h5) raised without naming h5py: {e}")
+                h5 = f"raises: {e}"
+            else:
+                fail("from_parts (.h5) loaded without h5py")
+        else:
+            h5_parts = SRModel.from_parts(*PART_FILES["h5"], 10, 400, device=device)
+            if not torch.equal(h5_parts.predict(x), whole):
+                fail("from_parts (.h5) does not predict bit-equal to from_checkpoint")
+            h5 = "loads (h5py installed), bit-equal"
+    finally:
+        cudnn.deterministic = saved
+    log(f"  from_parts: .msgpack parts bit-equal to from_checkpoint; .h5 parts {h5}")
+    return dict(msgpack_bit_equal=True, h5=h5)
+
+
 # the row-decomposed solver (sr_for_cfd_tpu_torch/parallel/): one rank on the
 # card, an NCCL group of world size 1 through a file:// store
 SPMD_RANKS = 8  # the row 9 gates cut the 2048^2 field as 8 ranks' bands
@@ -2723,6 +3051,14 @@ def main():
     spmd_reference(device)
     torch.cuda.synchronize()
     log(f"phase reference: {time.perf_counter() - t:.1f} s")
+
+    # phase 8: its launches are printed here and kept out of the table
+    t = time.perf_counter()
+    cli_persistence = dict(cli_hybrid=phase_cli_hybrid(device), resume=phase_resume(device),
+                           model_parts=phase_model_parts(device))
+    torch.cuda.synchronize()
+    log(f"phase CLI and persistence: {time.perf_counter() - t:.1f} s")
+    log(f"phase CLI and persistence record: {json.dumps(cli_persistence)}")
 
     def launches(kernel):
         counts = {path: c[kernel] for path, c in by_path.items()}

@@ -13,6 +13,7 @@ solver refuses to step it, as the JAX package's does.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -56,6 +57,12 @@ class VariableBCs:
     right: BoundaryCondition = BoundaryCondition()
     top: BoundaryCondition = BoundaryCondition()
     bottom: BoundaryCondition = BoundaryCondition()
+
+    def __getitem__(self, side: str) -> BoundaryCondition:
+        return getattr(self, side)
+
+    def replace(self, **kw) -> "VariableBCs":
+        return dataclasses.replace(self, **kw)
 
 
 class BoundaryConditions:

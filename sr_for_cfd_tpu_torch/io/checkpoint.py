@@ -12,6 +12,11 @@ weights and writes new ones without msgpack or flax installed;
 `flax.serialization.from_bytes` reads what `save_params` writes.
 `save_params` / `load_params` keep the JAX package's signatures (a Flax
 variables tree in, a tree restored against a template out).
+
+Solver states go to .npz (`save_solver_state` / `load_solver_fields`):
+the padded (nx+2, ny+2) u, v, p and the iteration count, the keys and
+layout of the JAX package's snapshots, so either package resumes the
+other's.
 """
 
 from __future__ import annotations
@@ -358,3 +363,37 @@ def load_sr_model(path: str, lr_dim: int, hr_dim: int, device="cuda"):
     model.load_state_dict(params_from_jax(read_msgpack(path), lr_dim, hr_dim))
     return model.to(device).eval()
 
+
+
+def _npz_path(path: str) -> str:
+    """np.savez silently appends '.npz' but np.load uses the path
+    verbatim; normalize so save/load round-trip for any input path."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def save_solver_state(path: str, state) -> None:
+    """Snapshot a solver state (anything with padded u, v, p fields as
+    tensors or arrays, and an iteration `count`) to .npz."""
+    path = _npz_path(path)
+    out_dir = os.path.dirname(path)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    np.savez(path, u=_host(state.u), v=_host(state.v), p=_host(state.p),
+             count=np.asarray(int(state.count), np.int32))
+
+
+def load_solver_fields(path: str) -> Dict[str, np.ndarray]:
+    """Load a snapshot back as the (ny, nx) interior field dict accepted by
+    `CFDSolver.warm_start`."""
+    with np.load(_npz_path(path)) as data:
+        return {k: data[k][1:-1, 1:-1].T.copy() for k in ("u", "v", "p")}
+
+
+def load_solver_count(path: str) -> int:
+    """The iteration count stored in a snapshot."""
+    with np.load(_npz_path(path)) as data:
+        return int(data["count"])

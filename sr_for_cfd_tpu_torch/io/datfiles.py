@@ -10,7 +10,7 @@ format of the golden validation artifact `outputs/bfs_Re400_centerline.dat`.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -75,3 +75,21 @@ def save_centerline_data(
                 f.write(f"{x[i]:.6f}\t{v_h[i]:.6f}")
             f.write("\n")
 
+
+
+def load_centerline_dat(filename: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Parse a centerline .dat back into (y, u, x, v) arrays (for golden
+    regression tests against reference artifacts)."""
+    ys, us, xs, vs = [], [], [], []
+    with open(filename) as f:
+        for line in f:
+            if line.startswith("#") or not line.strip():
+                continue
+            parts = line.split("\t")
+            if len(parts) >= 2 and parts[0].strip():
+                ys.append(float(parts[0]))
+                us.append(float(parts[1]))
+            if len(parts) >= 4 and parts[2].strip():
+                xs.append(float(parts[2]))
+                vs.append(float(parts[3]))
+    return np.array(ys), np.array(us), np.array(xs), np.array(vs)

@@ -30,7 +30,7 @@ def _h5py():
     except ImportError as e:
         raise ImportError(
             "reading or writing .h5 files needs the h5py package, which is "
-            "not installed") from e
+            "not installed", name="h5py") from e
     return h5py
 
 

@@ -176,8 +176,15 @@ class SuperResolutionAE(nn.Module):
         self.decoder_hr = Decoder(hr_resolution, latent_dim)
 
     def forward(self, x):
-        y = self.decoder_hr(self.encoder_lr(x.permute(0, 3, 1, 2)))
-        return y.permute(0, 2, 3, 1)
+        return self.decode(self.encode(x))
+
+    def encode(self, x):
+        """(N, lr, lr, 1) NHWC -> (N, latent)."""
+        return self.encoder_lr(x.permute(0, 3, 1, 2))
+
+    def decode(self, z):
+        """(N, latent) -> (N, hr, hr, 1) NHWC."""
+        return self.decoder_hr(z).permute(0, 2, 3, 1)
 
 
 # jax.nn.initializers.variance_scaling: the standard deviation of a

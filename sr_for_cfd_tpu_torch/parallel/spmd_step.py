@@ -30,9 +30,10 @@ plain blocks. With `pressure_solver='multigrid'` it runs the sharded V-cycle
 of `spmd_mg.py`, whose smoother takes the same kernel under `use_pallas`.
 
 One rank per process; on the card, one card per rank and an NCCL group
-(`torchrun --nproc-per-node N` on one host), on the CPU a gloo group. Not
-ported yet (ROADMAP queue A, item A11): `checkpoint` / `resume_from` (the
-`.npz` helpers of item A8) and `SpmdWorkflowAdapter`.
+(`torchrun --nproc-per-node N` on one host), on the CPU a gloo group.
+`checkpoint` / `resume_from` write and read the single-device solver's
+`.npz` snapshot. Not ported yet (ROADMAP queue A, item A11):
+`SpmdWorkflowAdapter`.
 """
 
 from __future__ import annotations
@@ -774,14 +775,17 @@ class SpmdSolver:
         return {k: v[1:-1, 1:-1].T.copy() for k, v in self.global_fields().items()}
 
     def save_results(self, output_base_name: str) -> None:
-        """The `.dat` pair of `io/results.save_all_results`, written by
+        """The artifact suite of `io/results.save_all_results`, written by
         rank 0 (every rank calls it: the fields are gathered first)."""
         from ..io.results import save_all_results
 
-        var = self.Var
+        f = self.global_fields()
         if self.rank == 0:
-            save_all_results(SimpleNamespace(case=self.case, Var=var),
-                             output_base_name)
+            interior = {k: v[1:-1, 1:-1].T.copy() for k, v in f.items()}
+            save_all_results(SimpleNamespace(
+                case=self.case, Var=np.stack([f["u"], f["v"], f["p"]]),
+                interior_fields=lambda: interior,
+                residual_history=self.residual_history), output_base_name)
 
     def warm_start(self, fields: Dict[str, np.ndarray], count: int = 0) -> None:
         """Re-seed from (ny, nx) interior fields, as `CFDSolver.warm_start`:
@@ -790,3 +794,20 @@ class SpmdSolver:
         if count:
             state = state.replace(count=int(count))
         self.local = self._to_local(state)
+
+    def checkpoint(self, path: str) -> None:
+        """Write the whole state as the single-device solver's .npz snapshot
+        (`io.checkpoint.save_solver_state`), from rank 0; every rank calls it
+        (the fields are gathered first)."""
+        from ..io.checkpoint import save_solver_state
+
+        f = self.global_fields()
+        if self.rank == 0:
+            save_solver_state(path, SimpleNamespace(
+                u=f["u"], v=f["v"], p=f["p"], count=self.local.count))
+
+    def resume_from(self, path: str) -> None:
+        """Resume from a .npz snapshot of either solver (fields and count)."""
+        from ..io.checkpoint import load_solver_count, load_solver_fields
+
+        self.warm_start(load_solver_fields(path), count=load_solver_count(path))

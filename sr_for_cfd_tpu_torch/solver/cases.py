@@ -4,9 +4,9 @@ case from dicts (counterpart of `sr_for_cfd_tpu/solver/cases.py`).
 The `create_*` functions build a solver, run it and return (solver,
 iterations, seconds), with the JAX package's signatures; `device` travels
 in `**kw` to `make_*_solver` (or is a keyword of `create_custom_case`) and
-defaults to the card. `save_results=True` writes the run's `_full.dat` and
-`_centerline.dat`; the JAX package's HDF5 group and PNGs are not ported
-yet (ROADMAP queue A, item A8).
+defaults to the card. `save_results=True` writes the run's artifact suite
+(`io/results.save_all_results`: the two .dat files always, the HDF5 group
+and the PNGs where h5py and matplotlib are installed).
 """
 
 from __future__ import annotations

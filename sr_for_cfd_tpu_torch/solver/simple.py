@@ -28,6 +28,7 @@ adds the per-chunk host checks (history, divergence, host plateau).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, Optional, Tuple
@@ -55,6 +56,7 @@ from ..ops.stencil import (
 )
 from ..ops.sweeps import solve_momentum, solve_pressure
 from ..utils.device import resolve_device
+from ..utils.timing import profile_trace
 from .state import SolverState, init_state, inlet_profile, torch_dtype, warm_start_state
 
 
@@ -347,6 +349,12 @@ class ResidualHistory:
         for k, val in zip(("u", "v", "p"), rms):
             self.data[k].append(float(val))
 
+    def __getitem__(self, k):
+        return self.data[k]
+
+    def __len__(self):
+        return len(self.iterations)
+
 
 class DivergenceError(ValueError):
     """Raised when residuals go NaN/Inf."""
@@ -423,6 +431,10 @@ class CFDSolver:
     def Var(self) -> np.ndarray:
         return self.state.var()
 
+    @property
+    def nVar(self) -> int:
+        return 3
+
     def interior_fields(self) -> Dict[str, np.ndarray]:
         return self.state.interior_fields()
 
@@ -433,18 +445,35 @@ class CFDSolver:
         if count:
             self.state = self.state.replace(count=int(count))
 
+    def resume_from(self, path: str) -> None:
+        """Resume from an `io.checkpoint` .npz snapshot (fields and
+        iteration count; the format `SpmdSolver.checkpoint` and the JAX
+        package write)."""
+        from ..io.checkpoint import load_solver_count, load_solver_fields
+
+        self.warm_start(load_solver_fields(path), count=load_solver_count(path))
+
     def solve(
         self,
         output_base_name: str = "output",
         verbose: bool = True,
         log_convergence: bool = False,
         save_results: bool = True,
+        snapshot_every: int = 0,
+        profile_dir: Optional[str] = None,
     ) -> Tuple[int, float]:
         """Run to convergence or max_iterations; returns (iterations,
         elapsed_seconds). The host checks run once per `chunk_size`
-        iterations, as in the JAX package."""
+        iterations, as in the JAX package.
+
+        `snapshot_every` > 0 writes a restartable snapshot
+        (`{output_base_name}_snapshot.npz`, `io.checkpoint.save_solver_state`)
+        at the first chunk boundary N or more iterations after the last;
+        `resume_from` restores it. `profile_dir` captures a torch.profiler
+        trace of the solve there (`utils.timing.profile_trace`)."""
         st = self.case.settings
         start = time.time()
+        last_snapshot = 0
         log_file = None
         if log_convergence:
             log_file = open(f"{output_base_name}_convergence.log", "w")
@@ -462,47 +491,59 @@ class CFDSolver:
             print("-" * 60)
 
         rms_window: list = []
-        try:
-            # each chunk runs >= 1 step unless the state is inactive, and an
-            # inactive state ends the loop below, so max_iterations + 1
-            # passes bound it
-            for _ in range(st.max_iterations + 1):
-                self.state = run_chunk(self.state, self.profile, self.case,
-                                       st.chunk_size, nu=self._nu)
-                count = self.state.count
-                rms = self.state.rms
-                self.residual_history.append(count, rms)
-                if verbose:
-                    print(f"{count}\t{rms[0]:.6e}\t{rms[1]:.6e}\t{rms[2]:.6e}")
+        trace = profile_trace(profile_dir) if profile_dir else contextlib.nullcontext()
+        with trace:
+            try:
+                # each chunk runs >= 1 step unless the state is inactive, and an
+                # inactive state ends the loop below, so max_iterations + 1
+                # passes bound it
+                for _ in range(st.max_iterations + 1):
+                    self.state = run_chunk(self.state, self.profile, self.case,
+                                           st.chunk_size, nu=self._nu)
+                    count = self.state.count
+                    rms = self.state.rms
+                    self.residual_history.append(count, rms)
+                    if verbose:
+                        print(f"{count}\t{rms[0]:.6e}\t{rms[1]:.6e}\t{rms[2]:.6e}")
+                    if log_file:
+                        log_file.write(
+                            f"{count}\t{rms[0]:.6e}\t{rms[1]:.6e}\t{rms[2]:.6e}"
+                            f"\t{time.time() - start:.3f}\n")
+                        log_file.flush()
+                    if self.state.diverged:
+                        raise DivergenceError(
+                            f"Solution diverged at iteration {count}: "
+                            f"RMS = {rms.tolist()} (NaN/Inf detected). "
+                            f"Try a smaller dt or stronger under-relaxation.")
+                    if snapshot_every and count - last_snapshot >= snapshot_every:
+                        from ..io.checkpoint import save_solver_state
+
+                        save_solver_state(f"{output_base_name}_snapshot.npz", self.state)
+                        last_snapshot = count
+                    if self.state.converged or count >= st.max_iterations:
+                        crit = np.asarray([st.criterion(c) for c in ("u", "v", "p")])
+                        if verbose and self.state.converged and np.any(rms > crit):
+                            print(f"Stopping at iteration {count}: device-side "
+                                  f"plateau (working-precision convergence)")
+                        break
+                    if st.plateau_patience > 0:
+                        rms_window.append(rms)
+                        n = st.plateau_patience
+                        if len(rms_window) >= 2 * n:
+                            recent = np.median(rms_window[-n:], axis=0)
+                            prior = np.median(rms_window[-2 * n:-n], axis=0)
+                            if np.all(recent >= (1.0 - st.plateau_rtol) * prior):
+                                if verbose:
+                                    print(f"Stopping at iteration {count}: "
+                                          f"residuals plateaued (working-"
+                                          f"precision convergence)")
+                                break
+                            rms_window = rms_window[-2 * n:]
+            finally:
                 if log_file:
-                    log_file.write(
-                        f"{count}\t{rms[0]:.6e}\t{rms[1]:.6e}\t{rms[2]:.6e}"
-                        f"\t{time.time() - start:.3f}\n")
-                    log_file.flush()
-                if self.state.diverged:
-                    raise DivergenceError(
-                        f"Solution diverged at iteration {count}: "
-                        f"RMS = {rms.tolist()} (NaN/Inf detected). "
-                        f"Try a smaller dt or stronger under-relaxation.")
-                if self.state.converged or count >= st.max_iterations:
-                    break
-                if st.plateau_patience > 0:
-                    rms_window.append(rms)
-                    n = st.plateau_patience
-                    if len(rms_window) >= 2 * n:
-                        recent = np.median(rms_window[-n:], axis=0)
-                        prior = np.median(rms_window[-2 * n:-n], axis=0)
-                        if np.all(recent >= (1.0 - st.plateau_rtol) * prior):
-                            if verbose:
-                                print(f"Stopping at iteration {count}: "
-                                      "residuals plateaued")
-                            break
-                        rms_window = rms_window[-2 * n:]
-        finally:
-            if log_file:
-                log_file.close()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                    log_file.close()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         elapsed = time.time() - start
         if verbose:
             print(f"\nSimulation completed in {elapsed:.2f} seconds")

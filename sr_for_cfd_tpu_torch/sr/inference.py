@@ -124,6 +124,40 @@ class SRModel:
 
         return cls(lr_dim, hr_dim, load_sr_model(path, lr_dim, hr_dim, device))
 
+    @classmethod
+    def from_parts(cls, encoder_file: str, decoder_file: str, lr_dim: int,
+                   hr_dim: int, latent_dim: int = LATENT_DIM,
+                   device="cuda") -> "SRModel":
+        """Assemble from split encoder/decoder checkpoints, the reference's
+        convention (`PyCFD_ML_accelerated.py:831-833`): .msgpack parts are
+        Flax msgpack files (`io/checkpoint.py`), .h5 parts Keras checkpoints
+        (`models/keras_import.py`, which needs h5py)."""
+        from ..io.checkpoint import load_params, params_to_jax
+        from ..models import keras_import
+
+        template = params_to_jax(SuperResolutionAE(lr_dim, hr_dim, latent_dim)
+                                 .state_dict(), lr_dim, hr_dim)["params"]
+        parts = {}
+        for key, path, load_h5 in (
+                ("encoder_lr", encoder_file, keras_import.load_keras_encoder_params),
+                ("decoder_hr", decoder_file, keras_import.load_keras_decoder_params)):
+            tree = (load_h5(path) if path.endswith(".h5")
+                    else load_params(path, {"params": template[key]}))
+            parts[key] = tree["params"]
+        return cls.create(lr_dim, hr_dim, {"params": parts}, latent_dim,
+                          device=device)
+
+    @classmethod
+    def from_combined_h5(cls, path: str, lr_dim: int, hr_dim: int,
+                         latent_dim: int = LATENT_DIM, device="cuda") -> "SRModel":
+        """Load a combined `superresolution{lr}to{hr}_*.h5` artifact (the
+        reference's third export, `sr-ae-conv.ipynb` export cell; needs
+        h5py)."""
+        from ..models.keras_import import load_keras_combined_params
+
+        return cls.create(lr_dim, hr_dim, load_keras_combined_params(path),
+                          latent_dim, device=device)
+
     @torch.no_grad()
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         with _no_tf32():

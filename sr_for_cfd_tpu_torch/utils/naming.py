@@ -66,3 +66,20 @@ def fine_run_name(
         f"{case}_Re{fmt_re(re)}_{nx}x{ny}_{coarse}{fine_iters}_{fine}{kind}",
     )
 
+
+
+def default_model_files(lr_dim: int, hr_dim: int, suffix: str, model_dir: str = "."):
+    """Reference model-artifact naming convention
+    (`PyCFD_ML_accelerated.py:1069-1074`): the stats file and the split
+    Keras encoder and decoder."""
+    return {
+        "stats_file": os.path.join(
+            model_dir, f"standardization_stats_{lr_dim}to{hr_dim}_{suffix}.txt"
+        ),
+        "encoder_file": os.path.join(
+            model_dir, f"vanilla_encoder{lr_dim}_to_{hr_dim}_{suffix}.h5"
+        ),
+        "decoder_file": os.path.join(
+            model_dir, f"vanilla_decoder{hr_dim}_from_{lr_dim}_{suffix}.h5"
+        ),
+    }

@@ -6,16 +6,14 @@ cold-start baseline and the centerline comparison. Every phase runs on
 
 Differences from the JAX package:
 * `save_results=False` writes nothing and creates no directory; the
-  centerline difference stats are computed either way, without
-  matplotlib. The comparison plot, the HDF5 group and the PNGs of a run
-  are not ported yet (ROADMAP queue A, item A8); `save_results=True`
-  writes each phase's .dat artifacts.
+  centerline difference stats are computed either way. `save_results=True`
+  writes each phase's artifact suite (`io/results.save_all_results`) and
+  the warm-vs-cold centerline comparison plot; where h5py or matplotlib is
+  not installed, those writers print a skip line and the .dat files are
+  still written.
 * Fine phases with `spmd_devices > 1` raise `NotImplementedError`: the
   JAX package runs them on its `SpmdSolver` behind `SpmdWorkflowAdapter`,
   which is not ported yet (ROADMAP queue A, item A11).
-* The SR model comes from a Flax msgpack checkpoint (`model_file`), an
-  explicit `model`, or the bicubic fallback; the split Keras .h5
-  encoder/decoder convention is not ported.
 """
 
 from __future__ import annotations
@@ -27,15 +25,24 @@ import numpy as np
 
 from ..config import BoundaryConditions
 from ..io.datfiles import extract_centerlines
+from ..io.results import run_or_skip
 from ..solver.cases import make_bfs_solver, make_cavity_solver
 from ..solver.simple import CFDSolver
 from ..sr.inference import BicubicSR, SRModel, ml_super_resolution
 from ..utils.naming import (
     coarse_run_name,
     create_timestamped_output_dir,
+    default_model_files,
     fine_run_name,
+    fmt_re,
 )
 from ..utils.timing import trace_annotation
+from ..viz.plots import (
+    centerline_diff_stats,
+    format_bc_summary,
+    plot_centerline_comparison,
+    print_diff_stats,
+)
 
 
 def kernel_launch_counts() -> Dict[str, int]:
@@ -102,21 +109,6 @@ def _make_solver(case: str, Re: float, nx: int, ny: int, dt: float,
         double_lid=(case == "double_lid"), device=device, **kw)
 
 
-def centerline_diff_stats(ml: Dict[str, np.ndarray],
-                          normal: Dict[str, np.ndarray]) -> Dict[str, Dict[str, float]]:
-    """max / mean / rms absolute differences of the two centerlines (the
-    numbers `plot_centerline_comparison` returns in the JAX package)."""
-    stats = {}
-    for key, name in (("u_centerline", "U"), ("v_centerline", "V")):
-        diff = np.abs(np.asarray(ml[key]) - np.asarray(normal[key]))
-        stats[name] = {
-            "max": float(diff.max()),
-            "mean": float(diff.mean()),
-            "rms": float(np.sqrt((diff ** 2).mean())),
-        }
-    return stats
-
-
 def run_coarse_simulation(
     Re: float,
     lr_dim: int = 10,
@@ -143,6 +135,20 @@ def run_coarse_simulation(
     iterations, elapsed = solver.solve(output_name, verbose=verbose,
                                        save_results=save_results)
     return solver.interior_fields(), solver, iterations, elapsed
+
+
+def generate_coarse_mesh_solution(
+    Re: float, lr_dim: int = 10, output_dir: Optional[str] = None, **kw
+) -> Tuple[Dict[str, np.ndarray], Optional[str]]:
+    """Wrapper: timestamped dir + coarse run
+    (`PyCFD_ML_accelerated.py:966-1021`). With `save_results=False` no
+    directory is made and the returned one is `output_dir` as given."""
+    if output_dir is None and kw.get("save_results", True):
+        output_dir = create_timestamped_output_dir()
+    fields, _, _, _ = run_coarse_simulation(
+        Re, lr_dim=lr_dim, output_dir=output_dir, **kw
+    )
+    return fields, output_dir
 
 
 def run_fine_simulation_with_ml_init(
@@ -191,8 +197,12 @@ def run_ml_accelerated_fine_simulation(
     lr_dim: int = 10,
     hr_dim: Optional[int] = None,
     stats_file: Optional[str] = None,
+    encoder_file: Optional[str] = None,
+    decoder_file: Optional[str] = None,
     model_file: Optional[str] = None,
     model=None,
+    model_suffix: str = "swish_trained_upto_700_multiBC",
+    model_dir: str = ".",
     use_aspect_ratio_correction: bool = False,
     lx: float = 1.0,
     ly: float = 1.0,
@@ -205,24 +215,45 @@ def run_ml_accelerated_fine_simulation(
     **kw,
 ) -> Tuple[CFDSolver, int, float, Dict[str, np.ndarray]]:
     """Step 2+3: super-resolve the coarse fields, then run the
-    warm-started fine solve. Model resolution order: explicit `model` >
-    `model_file` (Flax msgpack) > bicubic fallback."""
+    warm-started fine solve (`PyCFD_ML_accelerated.py:1024-1119`).
+
+    Model resolution order, as in the JAX package: explicit `model` >
+    `model_file` (Flax msgpack) if it exists > the split encoder/decoder
+    parts (`encoder_file`, `decoder_file`, else the reference's names in
+    `model_dir` for `model_suffix`, `utils.naming.default_model_files`) if
+    both exist > bicubic fallback. `stats_file` defaults to the reference's
+    name in `model_dir`; a trained model without it raises."""
     if hr_dim is None:
         hr_dim = max(nx, ny)
+    names = default_model_files(lr_dim, hr_dim, model_suffix, model_dir)
+    if stats_file is None:
+        stats_file = names["stats_file"]
+
     if model is None:
+        if encoder_file is None and os.path.exists(names["encoder_file"]):
+            encoder_file = names["encoder_file"]
+        if decoder_file is None and os.path.exists(names["decoder_file"]):
+            decoder_file = names["decoder_file"]
         if model_file and os.path.exists(model_file):
             model = SRModel.from_checkpoint(model_file, lr_dim, hr_dim, device)
+        elif (encoder_file and decoder_file
+              and os.path.exists(encoder_file) and os.path.exists(decoder_file)):
+            model = SRModel.from_parts(encoder_file, decoder_file, lr_dim,
+                                       hr_dim, device=device)
         else:
-            if model_file and verbose:
-                print("  model checkpoint not found -> bicubic fallback")
+            if (model_file or encoder_file) and verbose:
+                print("  model checkpoint(s) not found -> bicubic fallback")
             model = BicubicSR(lr_dim, hr_dim)
 
     stats = None
-    if stats_file is None or not os.path.exists(stats_file):
+    if not os.path.exists(stats_file):
         if not isinstance(model, BicubicSR):
             raise FileNotFoundError(
                 f"Standardization stats file not found: {stats_file}")
         # the fallback is scale-free: identity stats
+        if verbose:
+            print(f"  stats file not found ({stats_file}) -> identity "
+                  "standardization (bicubic fallback is scale-free)")
         stats = {f"{k}{d}_{c}": float(k == "std")
                  for k in ("mean", "std") for d in (lr_dim, hr_dim)
                  for c in ("u", "v", "p")}
@@ -335,6 +366,17 @@ def run_hybrid_experiment(
     ml_cl = extract_centerlines(ml_solver.Var, ml_solver.mesh)
     normal_cl = extract_centerlines(normal_solver.Var, normal_solver.mesh)
     diff_stats = centerline_diff_stats(ml_cl, normal_cl)
+    plotted = False
+    if save_results:
+        plot = os.path.join(output_dir,
+                            f"{prefix}_Re{fmt_re(Re)}_centerline_comparison.png")
+        # the reference's BC subtitle (`format_bc_summary`); the plot
+        # prints the difference stats
+        plotted = run_or_skip(
+            "centerline comparison plot", "matplotlib", [plot],
+            lambda: plot_centerline_comparison(
+                plot, ml_cl, normal_cl, Re,
+                bc_summary=format_bc_summary(bc) if bc is not None else None))
     speedup = normal_time / ml_time if ml_time > 0 else float("inf")
     ms_per_iter = {
         phase: round(1e3 * t / n, 4) if n else None
@@ -342,10 +384,9 @@ def run_hybrid_experiment(
                             ("ml", ml_time, ml_iters),
                             ("normal", normal_time, normal_iters))
     }
+    if verbose and not plotted:
+        print_diff_stats(diff_stats)
     if verbose:
-        for name, s in diff_stats.items():
-            print(f"  {name} centerline diff: max={s['max']:.6e} "
-                  f"mean={s['mean']:.6e} rms={s['rms']:.6e}")
         print(f"  Coarse solve : {coarse_iters} iters, {coarse_time:.2f}s "
               f"({ms_per_iter['coarse']} ms/iter)")
         print(f"  ML fine solve: {ml_iters} iters, {ml_time:.2f}s "

@@ -308,16 +308,13 @@ def evaluate_for_re(
     """Per-sample MAE and NMAE% in physical units after inverse
     standardization (reference `evaluate_for_re`, sr-ae-conv.ipynb cell 0).
     NMAE% = MAE / (data range) x 100. `params` is a state_dict for `model`
-    (None: its own weights). The comparison plots (`plot_dir`) are not
-    ported."""
-    if plot_dir:
-        raise NotImplementedError(
-            "plot_dir: the comparison plots (viz/plots.py) are not ported to "
-            "the PyTorch package yet (ROADMAP queue A, item A8)")
+    (None: its own weights). `plot_dir` writes each sample's 4-panel
+    comparison `sr_Re{re}_{comp}.png` there (needs matplotlib)."""
     idx = np.where(res_test == re)[0]
     results = []
     for i in idx:
         comp = str(comps_test[i])
+        mean_lr, std_lr = stats[f"mean{lr_dim}_{comp}"], stats[f"std{lr_dim}_{comp}"]
         mean_hr, std_hr = stats[f"mean{hr_dim}_{comp}"], stats[f"std{hr_dim}_{comp}"]
         pred_norm = _predict(model, params, x_lr_test[i : i + 1])[0, ..., 0]
         pred = stz.inverse_standardize(pred_norm, mean_hr, std_hr)
@@ -328,6 +325,17 @@ def evaluate_for_re(
         results.append({"component": comp, "mae": mae, "nmae_pct": nmae})
         if verbose:
             print(f"  Re={re} {comp.upper()}: MAE={mae:.4f} NMAE={nmae:.2f}%")
+        if plot_dir:
+            from ..utils.naming import fmt_re
+            from ..viz.plots import plot_superres_comparison
+
+            os.makedirs(plot_dir, exist_ok=True)
+            lr_truth = stz.inverse_standardize(x_lr_test[i, ..., 0], mean_lr, std_lr)
+            plot_superres_comparison(
+                lr_truth, truth, pred, re, comp,
+                (lr_dim, lr_dim), (hr_dim, hr_dim), mae, nmae,
+                filename=f"{plot_dir}/sr_Re{fmt_re(re)}_{comp}.png",
+            )
     if results:
         avg_mae = float(np.mean([r["mae"] for r in results]))
         avg_nmae = float(np.mean([r["nmae_pct"] for r in results]))
@@ -430,9 +438,9 @@ def export_models(
 ) -> Dict[str, str]:
     """Save encoder / decoder / combined checkpoints (Flax msgpack, read by
     the JAX package's `SRModel.from_checkpoint`) + stats .txt with the
-    reference's artifact naming (sr-ae-conv.ipynb export cell). The Keras
-    .h5 triple is not ported; its absence prints the JAX package's skip
-    line."""
+    reference's artifact naming (sr-ae-conv.ipynb export cell), and the
+    Keras .h5 triple where TensorFlow imports (`models/keras_export.py`);
+    otherwise the JAX package's skip line is printed."""
     from ..io.checkpoint import params_to_jax, save_params
 
     os.makedirs(out_dir, exist_ok=True)
@@ -448,7 +456,20 @@ def export_models(
     save_params(paths["decoder"], {"params": params["decoder_hr"]})
     save_params(paths["combined"], tree)
     stz.write_stats_file(paths["stats"], stats)
-    e = NotImplementedError("the Keras .h5 export (models/keras_export.py) is not "
-                            "ported to the PyTorch package yet (ROADMAP queue A, item A8)")
-    print(f"  (Keras .h5 export skipped: {type(e).__name__}: {e})")
+    # reference-compatible Keras .h5 triple: encoder + decoder +
+    # combined superresolution model (optional: requires tensorflow)
+    try:
+        from ..models.keras_export import export_combined_h5, export_superres_h5
+
+        paths["encoder_h5"] = os.path.join(
+            out_dir, f"vanilla_encoder{lr_dim}_to_{hr_dim}_{suffix}.h5")
+        paths["decoder_h5"] = os.path.join(
+            out_dir, f"vanilla_decoder{hr_dim}_from_{lr_dim}_{suffix}.h5")
+        export_superres_h5(tree, lr_dim, hr_dim,
+                           paths["encoder_h5"], paths["decoder_h5"])
+        paths["combined_h5"] = os.path.join(
+            out_dir, f"superresolution{lr_dim}to{hr_dim}_{suffix}.h5")
+        export_combined_h5(tree, lr_dim, hr_dim, paths["combined_h5"])
+    except Exception as e:
+        print(f"  (Keras .h5 export skipped: {type(e).__name__}: {e})")
     return paths

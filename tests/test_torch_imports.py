@@ -1,7 +1,8 @@
 """The port stands alone: no file of `sr_for_cfd_tpu_torch/` and not
 `chip_smoke.py` imports jax, flax, optax, msgpack or the JAX package,
-h5py is imported only inside functions, and importing the port needs
-none of h5py, msgpack, matplotlib or flax."""
+h5py, matplotlib and tensorflow are imported only inside functions, and
+importing the port (its command line included) needs none of h5py,
+msgpack, matplotlib, tensorflow or flax."""
 
 import ast
 import os
@@ -13,8 +14,8 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "sr_for_cfd_tpu"}
 # imported only inside the functions that need them (the card's machine
-# has neither)
-LAZY = {"h5py", "matplotlib"}
+# has none of them)
+LAZY = {"h5py", "matplotlib", "tensorflow"}
 
 
 def _port_files():
@@ -95,15 +96,19 @@ def test_hdf5_functions_without_h5py_raise_naming_it():
 
 
 def test_port_imports_without_optional_packages():
-    """Import every module of the port with jax, flax, h5py, msgpack and
-    matplotlib made unimportable."""
+    """Import every module of the port with jax, flax, h5py, msgpack,
+    matplotlib and tensorflow made unimportable, and build the command
+    line's parser."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'flax', 'h5py', 'msgpack', 'matplotlib', 'sr_for_cfd_tpu'):\n"
+        "for m in ('jax', 'flax', 'h5py', 'msgpack', 'matplotlib', 'tensorflow',\n"
+        "          'sr_for_cfd_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import sr_for_cfd_tpu_torch as pkg\n"
         "for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(info.name)\n"
+        "import sr_for_cfd_tpu_torch.cli as cli\n"
+        "cli.build_parser().parse_args(['hybrid'])\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

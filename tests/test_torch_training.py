@@ -13,6 +13,7 @@ in the other package, the evaluation reports agree within 1e-5 relative.
 """
 
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -197,14 +198,24 @@ def test_adam_is_optax_s():
     assert opt.count == 4
 
 
-def test_training_refuses_the_mesh_and_plots():
+def test_training_refuses_the_mesh_and_plots(tmp_path):
+    """The data-parallel mesh is refused, naming A11; `plot_dir` (refused
+    until the plots were ported) writes the JAX package's comparison
+    plots, one a sample, under the same names."""
     x_lr, x_hr = _data(4)
     with pytest.raises(NotImplementedError, match="A11"):
         ttr.train_sr_autoencoder(x_lr, x_hr, 10, 20, epochs=1, mesh=object(), device="cpu")
     module = tae.SuperResolutionAE(10, 20)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ttr.evaluate_for_re(100, module, None, x_lr, x_hr, np.full(4, 100.0),
-                            np.array(["u"] * 4), {}, 10, 20, plot_dir="plots")
+    res, comps = np.array([100.0, 100.0, 100.0, 200.0]), np.array(["u", "v", "p", "u"])
+    stats = {f"{k}{d}_{c}": 1.0 for k in ("mean", "std") for d in (10, 20) for c in "uvp"}
+    ttr.evaluate_for_re(100, module, None, x_lr, x_hr, res, comps, stats, 10, 20,
+                        plot_dir=str(tmp_path / "port"), verbose=False)
+    jmodel = JaxAE(10, 20)
+    jparams = jmodel.init(jax.random.key(0), jnp.zeros((1, 10, 10, 1)))
+    jtr.evaluate_for_re(100, jmodel, jparams, x_lr, x_hr, res, comps, stats, 10, 20,
+                        plot_dir=str(tmp_path / "jax"), verbose=False)
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax")) \
+        == ["sr_Re100_p.png", "sr_Re100_u.png", "sr_Re100_v.png"]
 
 
 # ---- the model side ---------------------------------------------------------
@@ -312,20 +323,23 @@ def test_load_params_checks_the_template(tmp_path):
         tck.load_params(path, bad)
 
 
-def test_export_models_loads_in_jax_and_back(trained, tmp_path, capsys):
+def test_export_models_loads_in_jax_and_back(trained, tmp_path, capsys, monkeypatch):
     """The port's export read by JAX's SRModel.from_checkpoint predicts
     within 1e-6 of the port's module; JAX's export read by the port's
-    from_checkpoint predicts within 1e-6 of JAX's; the stats file and the
-    .h5 skip line are JAX's."""
+    from_checkpoint predicts within 1e-6 of JAX's; the stats file and,
+    without TensorFlow, the .h5 skip line are JAX's (the export through
+    TensorFlow: tests/test_torch_keras.py)."""
     from sr_for_cfd_tpu.sr.inference import SRModel as JaxSRModel
 
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
     jr, tr = trained
     stats = {f"{k}{d}_{c}": 0.5 for k in ("mean", "std") for d in (10, 20) for c in "uvp"}
     port_paths = ttr.export_models(tr, stats, 10, 20, "t", out_dir=str(tmp_path / "port"))
     out = capsys.readouterr().out
-    assert out.startswith("  (Keras .h5 export skipped: NotImplementedError: ") and "A8" in out
+    assert out.startswith("  (Keras .h5 export skipped: ModuleNotFoundError: ")
     jax_paths = jtr.export_models(jr, stats, 10, 20, "t", out_dir=str(tmp_path / "jax"))
-    capsys.readouterr()
+    assert capsys.readouterr().out == out
+    assert sorted(port_paths) == sorted(jax_paths)
     for k in ("encoder", "decoder", "combined", "stats"):
         assert os.path.basename(port_paths[k]) == os.path.basename(jax_paths[k])
     assert open(port_paths["stats"]).read() == open(jax_paths["stats"]).read()
