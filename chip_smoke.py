@@ -183,6 +183,29 @@ no result line:
    combined file under deterministic cuDNN, and on the .h5 parts raising
    an ImportError that names h5py where h5py is missing (loading
    bit-equal where it is installed).
+9. the native .dat writer and the decomposed workflow, after 8, on the
+   one-rank NCCL group. 9b: `run_hybrid_experiment` for the BFS Re=400
+   hybrid in the non-fused configuration of 3 (row 1 on the 10x10 coarse
+   phase, the shipped 10->400 autoencoder) with both 400x400 fine phases
+   behind `SpmdWorkflowAdapter` on `make_mesh(1, "x")`, built by the
+   workflow's own `hybrid._decomposed` (the sharded V-cycle with row 9 as
+   its smoother, as the workflow runs them for spmd_devices > 1), budgets
+   500 / 30 / 30, under deterministic cuDNN, the artifacts written;
+   counters set to 0 before and read after: row 1 must launch in the
+   coarse phase, row 9 in both fine phases and row 2 in neither; each fine phase bit-equal, with equal counts, to the
+   same SpmdSolver driven bare (warm from the same SR fields, and cold);
+   ms/iter, row 9 launches per step, warm against cold iterations. 9a: the
+   warm phase's 400x400 `_full.dat` through the native writer
+   (`io/native_io.py`, g++ at first use; it must be the writer that ran)
+   byte-identical to the Python writer, both timed in turns, and phase 8a's
+   `_full.dat` writes (now native) against the solves they end. 9c:
+   `batched_spmd_cavity_solve` on a 1x1 case x x mesh, the sweep's 8 Re at
+   400x400 (double lid, QUICK, multigrid, plain PyTorch as in the JAX
+   package), cut to 6 steps, each case bit-equal to its solo SpmdSolver
+   run. 9d: `train_sr_autoencoder(mesh=make_mesh(1))` (an all_reduce a
+   step) against mesh=None under deterministic cuDNN on 21 smooth seeded
+   10->400 samples for 20 epochs: loss history and weights bit-equal, s
+   per epoch. 9b's launches join the kernels line.
 
 The last lines are a `{"kernels": [...]}` line, the card's name and power
 limit as nvidia-smi prints them, and `{"ok": true, "device": {...}}`.
@@ -2965,6 +2988,268 @@ def spmd_reference(device):
     dist.destroy_process_group(gloo)
 
 
+# phase 9: the native .dat writer and the decomposed workflow on one rank
+# (NCCL world size 1): the hybrid's fine phases behind SpmdWorkflowAdapter,
+# the case-batched decomposed sweep and data-parallel training
+# the non-fused path's coarse budget; the fine phases cut to 30 steps: on the
+# BFS the float32 V-cycle never meets the 1e-6 inner tolerance, so each step
+# runs its V-cycles to the stall policy, ~0.5 s a step on one rank
+ADAPTER_BUDGETS = (500, 30, 30)
+SPMD_SWEEP_N = 400
+SPMD_SWEEP_STEPS = 6  # cut: the sweep's budget is 100000 steps
+SPMD_SWEEP_CHUNK = 3
+DP_SAMPLES = 21  # the paired sweep's train split: 7 Re x 3 components
+DP_EPOCHS = 20
+DP_LOG_EVERY = 10
+
+
+class AdapterFine:
+    """While entered, the hybrid's fine phases (nx = hr) run behind
+    `SpmdWorkflowAdapter` on the one-rank mesh `make_mesh(1, "x")`, built by
+    the workflow's own `hybrid._decomposed` (what it builds for
+    spmd_devices > 1 over N ranks); the adapters are kept."""
+
+    def __init__(self, device, hr):
+        self.device, self.hr, self.made = device, hr, []
+
+    def __enter__(self):
+        from sr_for_cfd_tpu_torch.parallel.mesh import make_mesh
+        from sr_for_cfd_tpu_torch.workflow import hybrid
+
+        self.real = real = hybrid._make_solver
+        made, device, hr = self.made, self.device, self.hr
+
+        def make(case, Re, nx, ny, *a, **k):
+            solver = real(case, Re, nx, ny, *a, **k)
+            if nx != hr:
+                return solver
+            made.append(hybrid._decomposed(solver, make_mesh(1, "x"), device))
+            return made[-1]
+
+        hybrid._make_solver = make
+        return self
+
+    def __exit__(self, *exc):
+        from sr_for_cfd_tpu_torch.workflow import hybrid
+
+        hybrid._make_solver = self.real
+
+
+def phase_adapter_hybrid(device):
+    """9b: the non-fused BFS hybrid (row 1 coarse, the shipped AE) with its
+    fine phases on the adapter (the sharded V-cycle, row 9 its smoother),
+    counters set to 0 before and read after; each fine phase bit-equal to
+    the same SpmdSolver driven without the adapter."""
+    import numpy as np
+    import torch
+
+    from sr_for_cfd_tpu_torch.parallel.mesh import make_mesh
+    from sr_for_cfd_tpu_torch.parallel.spmd_step import SpmdSolver
+    from sr_for_cfd_tpu_torch.workflow.hybrid import run_hybrid_experiment
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix="srcfd_adapter_") as out_dir:
+            reset_counters()
+            with AdapterFine(device, 400) as fine, DatWrites() as dat:
+                t = time.perf_counter()
+                res = run_hybrid_experiment(
+                    max_iterations_coarse=ADAPTER_BUDGETS[0],
+                    max_iterations_ml=ADAPTER_BUDGETS[1],
+                    max_iterations_normal=ADAPTER_BUDGETS[2], model_file=MODEL_FILE,
+                    stats_file=STATS_FILE, output_dir=out_dir, save_results=True,
+                    coarse_overrides=NON_FUSED_COARSE, device=device, **NON_FUSED)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t
+            files = sorted(os.listdir(out_dir))
+    finally:
+        cudnn.deterministic = saved
+    launches = res["kernel_launches"]
+    if len(fine.made) != 2 or res["solvers"]["ml"] is not fine.made[0]:
+        fail(f"adapter hybrid: the fine phases did not run on the adapter ({fine.made})")
+    if launches["coarse"]["rb_sor_pressure"] <= 0:
+        fail("adapter hybrid: row 1 did not launch in the coarse phase")
+    for phase in ("ml", "normal"):
+        if launches[phase]["shard_rb_pressure"] <= 0:
+            fail(f"adapter hybrid: row 9 did not launch in the {phase} phase")
+        if launches[phase]["mg_vcycle_pressure"] != 0:
+            fail(f"adapter hybrid: row 2 launched in the {phase} phase")
+    fine_dat = [f for f in files if f.endswith(("_full.dat", "_centerline.dat"))]
+    if len(fine_dat) != 6:
+        fail(f"adapter hybrid: files written {files}")
+    # the same SpmdSolver, bare: warm from the same SR fields, and cold
+    gates = {}
+    for phase, warm in (("ml", res["hr_fields"]), ("normal", None)):
+        adapter = res["solvers"][phase]
+        bare = SpmdSolver(adapter.case, make_mesh(1, "x"), device=device)
+        if warm is not None:
+            bare.warm_start(warm)
+        bare.solve()
+        got, want = adapter.interior_fields(), bare.interior_fields()
+        same = all(np.array_equal(got[c], want[c]) for c in "uvp")
+        counts = (adapter.spmd.local.count, bare.local.count,
+                  adapter.spmd.inner_counts, bare.inner_counts)
+        if not same or counts[0] != counts[1] or counts[2] != counts[3]:
+            fail(f"adapter hybrid: the {phase} phase differs from the bare SpmdSolver "
+                 f"(bit-equal {same}, counts {counts})")
+        if not all(np.all(np.isfinite(got[c])) for c in "uvp"):
+            fail(f"adapter hybrid: non-finite fields in the {phase} phase")
+        gates[phase] = dict(bit_equal=True, count=counts[0], inner=counts[2])
+    per = {}
+    for phase in ("coarse", "ml", "normal"):
+        n, secs = res[f"{phase}_iterations"], res[f"{phase}_time"]
+        per[phase] = dict(iterations=n, s=secs, ms_per_iter=1e3 * secs / max(n, 1),
+                          row9_per_step=launches[phase]["shard_rb_pressure"] / max(n, 1))
+        log(f"  adapter hybrid {phase}: {n} iterations, {secs:.3f} s, "
+            f"{per[phase]['ms_per_iter']:.3f} ms/iter, row 1 launches "
+            f"{launches[phase]['rb_sor_pressure']}, row 9 launches "
+            f"{launches[phase]['shard_rb_pressure']} ({per[phase]['row9_per_step']:.2f} a step)")
+    log(f"  adapter hybrid: warm {res['ml_iterations']} vs cold {res['normal_iterations']} "
+        f"iterations (budgets {ADAPTER_BUDGETS[1:]}); warm inner {gates['ml']['inner']}, cold "
+        f"inner {gates['normal']['inner']}; each fine phase bit-equal to the bare "
+        f"SpmdSolver with equal counts; run {run_s:.1f} s; .dat writes (file, Var shape, s) "
+        f"{dat.writes}")
+    totals = {k: sum(launches[ph][k] for ph in launches) for k in launches["coarse"]}
+    return totals, dict(phases=per, gates=gates, run_s=run_s, writes=dat.writes,
+                        warm_var=res["solvers"]["ml"].Var)
+
+
+def phase_native_dat(var, phase8):
+    """9a: the 400^2 _full.dat through the native writer, byte-identical to
+    the Python writer, both timed; phase 8a's writes (now native) against
+    the solves they end."""
+    import shutil
+
+    from sr_for_cfd_tpu_torch.config import MeshParameters
+    from sr_for_cfd_tpu_torch.io import datfiles, native_io
+
+    gxx = shutil.which("g++")
+    why = native_io.unavailable()
+    if why is not None:
+        fail(f"native .dat writer unavailable (g++: {gxx}): {why}")
+    mesh = MeshParameters(nx=var.shape[1] - 2, ny=var.shape[2] - 2)
+    times = {"native": [], "python": []}
+    with tempfile.TemporaryDirectory(prefix="srcfd_dat_") as tmp:
+        paths = {k: os.path.join(tmp, f"{k}_full.dat") for k in times}
+        for _ in range(2):  # in turns: native, python, python, native
+            for k in (("native", "python") if not times["native"] else ("python", "native")):
+                before = dict(native_io.used)
+                t = time.perf_counter()
+                if k == "native":
+                    datfiles.save_full_field(paths[k], var, mesh, 400.0, 2e-3)
+                else:
+                    datfiles.save_full_field_python(paths[k], var, mesh, 400.0, 2e-3)
+                times[k].append(time.perf_counter() - t)
+                if k == "native" and native_io.used["native"] != before["native"] + 1:
+                    fail("the native .dat writer did not write the body")
+        with open(paths["native"], "rb") as f:
+            native = f.read()
+        with open(paths["python"], "rb") as f:
+            python = f.read()
+    if native != python:
+        fail("the native .dat writer's file differs from the Python writer's")
+    writes, solves = phase8["full_dat_s"], phase8["phase_s"]
+    shares = [w / s for w, s in zip(writes[-2:], (solves["ml"], solves["normal"]))]
+    log(f"  native .dat: g++ {gxx}, library {native_io.LIB.name}; 400^2 _full.dat "
+        f"({len(native)} bytes) byte-identical; native {times['native']} s, Python "
+        f"{times['python']} s; writers used {dict(native_io.used)}; phase 8a's _full.dat "
+        f"writes {writes} s, warm and cold write / solve {shares}")
+    return dict(gxx=gxx, bytes=len(native), native_s=times["native"],
+                python_s=times["python"], phase8_writes=writes, phase8_share=shares,
+                used=dict(native_io.used))
+
+
+def phase_spmd_sweep(device):
+    """9c: batched_spmd_cavity_solve on a 1x1 case x x mesh, the sweep's 8
+    Re at 400^2 (double lid, QUICK, multigrid; cut to SPMD_SWEEP_STEPS),
+    each case bit-equal to its solo SpmdSolver run."""
+    import numpy as np
+    import torch
+
+    from sr_for_cfd_tpu_torch.parallel.mesh import make_mesh
+    from sr_for_cfd_tpu_torch.parallel.spmd_batch import (
+        batched_spmd_cavity_solve,
+        make_case_x_mesh,
+    )
+    from sr_for_cfd_tpu_torch.parallel.spmd_step import SpmdSolver
+    from sr_for_cfd_tpu_torch.solver.cases import make_cavity_solver
+
+    kw = dict(max_iterations=SPMD_SWEEP_STEPS, chunk_size=SPMD_SWEEP_CHUNK,
+              pressure_solver="multigrid", dtype=SWEEP["dtype"])
+    n = SPMD_SWEEP_N
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fields, counts = batched_spmd_cavity_solve(
+        SWEEP_RE, n, n, make_case_x_mesh(1, 1), dt=SWEEP["dt"], scheme=SWEEP["scheme"],
+        double_lid=SWEEP["double_lid"], verbose=False, device=device, **kw)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t
+    if sorted(fields) != [float(r) for r in SWEEP_RE] or list(counts) != [SPMD_SWEEP_STEPS] * 8:
+        fail(f"decomposed sweep: cases {sorted(fields)}, counts {list(counts)}")
+    t = time.perf_counter()
+    for re_val in SWEEP_RE:
+        case = make_cavity_solver(Re=re_val, nx=n, ny=n, dt=SWEEP["dt"], scheme=SWEEP["scheme"],
+                                  double_lid=SWEEP["double_lid"], device=device, **kw).case
+        solo = SpmdSolver(case, make_mesh(1, "x"), device=device)
+        solo.solve()
+        want = solo.interior_fields()
+        if solo.local.count != SPMD_SWEEP_STEPS or not all(
+                np.array_equal(fields[float(re_val)][c], want[c]) for c in "uvp"):
+            fail(f"decomposed sweep: Re {re_val} is not bit-equal to its solo run")
+        if not all(np.all(np.isfinite(want[c])) for c in "uvp"):
+            fail(f"decomposed sweep: Re {re_val} has non-finite fields")
+    solo_s = time.perf_counter() - t
+    log(f"  decomposed sweep {n}^2 (1x1 case x x mesh, plain multigrid): 8 cases x "
+        f"{SPMD_SWEEP_STEPS} steps in {batch_s:.3f} s ({1e3 * batch_s / (8 * SPMD_SWEEP_STEPS):.3f} "
+        f"ms a case step); each case bit-equal to its solo SpmdSolver run ({solo_s:.3f} s)")
+    return dict(n=n, steps=SPMD_SWEEP_STEPS, s=batch_s, solo_s=solo_s)
+
+
+def phase_dp_training(device):
+    """9d: train_sr_autoencoder on make_mesh(1) (an all_reduce a step on the
+    NCCL group) against mesh=None, under deterministic cuDNN: the loss
+    history and the kept weights bit-equal; s per epoch."""
+    import numpy as np
+    import torch
+
+    from sr_for_cfd_tpu_torch.parallel.mesh import make_mesh
+    from sr_for_cfd_tpu_torch.workflow.training import train_sr_autoencoder
+
+    # smooth seeded samples (each a field of smooth_fields, standardized)
+    x_hr = np.stack([smooth_fields(9 + i // 3, 400, 400, scale=1.0)["uvp"[i % 3]]
+                     for i in range(DP_SAMPLES)])[..., None].astype(np.float32)
+    x_hr = (x_hr - x_hr.mean()) / x_hr.std()
+    x_lr = x_hr.reshape(DP_SAMPLES, 10, 40, 10, 40, 1).mean(axis=(2, 4))
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    runs = {}
+    try:
+        for name, mesh in (("mesh=None", None), ("make_mesh(1)", make_mesh(1)),
+                           ("mesh=None again", None)):
+            runs[name] = train_sr_autoencoder(x_lr, x_hr, 10, 400, epochs=DP_EPOCHS,
+                                              log_every=DP_LOG_EVERY, verbose=False,
+                                              device=device, mesh=mesh)
+    finally:
+        cudnn.deterministic = saved
+    a, b = runs["mesh=None"], runs["make_mesh(1)"]
+    if a.loss_history != b.loss_history or not all(
+            torch.equal(a.params[k], b.params[k]) for k in a.params):
+        fail(f"DP training on one rank differs from mesh=None: {a.loss_history} vs "
+             f"{b.loss_history}")
+    if not np.all(np.isfinite(a.loss_history)):
+        fail(f"DP training: non-finite losses: {a.loss_history}")
+    per_epoch = {k: r.seconds / DP_EPOCHS for k, r in runs.items()}
+    again = runs["mesh=None again"].loss_history == a.loss_history
+    log(f"  DP training 10->400 ({DP_SAMPLES} samples, batch 8, {DP_EPOCHS} epochs): loss "
+        f"history and weights bit-equal on make_mesh(1) and mesh=None (mesh=None twice "
+        f"equal: {again}); first / last loss {a.loss_history[0]:.6f} / "
+        f"{a.loss_history[-1]:.6f}; s per epoch {per_epoch}")
+    return dict(s_per_epoch=per_epoch, losses=[a.loss_history[0], a.loss_history[-1]])
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sr_for_cfd_tpu_torch")):
         fail("run from a checkout of the repository (sr_for_cfd_tpu_torch/ not found)")
@@ -3059,6 +3344,18 @@ def main():
     torch.cuda.synchronize()
     log(f"phase CLI and persistence: {time.perf_counter() - t:.1f} s")
     log(f"phase CLI and persistence record: {json.dumps(cli_persistence)}")
+
+    # phase 9: its main path (9b) joins the kernels line's launches
+    t = time.perf_counter()
+    by_path["adapter_hybrid"], adapter = phase_adapter_hybrid(device)
+    decomposed = dict(
+        native_dat=phase_native_dat(adapter.pop("warm_var"), cli_persistence["cli_hybrid"]),
+        adapter_hybrid=adapter, spmd_sweep=phase_spmd_sweep(device),
+        dp_training=phase_dp_training(device))
+    torch.cuda.synchronize()
+    log(f"phase decomposed workflow: {time.perf_counter() - t:.1f} s, launches "
+        f"{by_path['adapter_hybrid']}")
+    log(f"phase decomposed workflow record: {json.dumps(decomposed, default=str)}")
 
     def launches(kernel):
         counts = {path: c[kernel] for path, c in by_path.items()}

@@ -37,8 +37,8 @@ from .solver.cases import (  # noqa: F401
 from .solver.simple import CFDSolver, DivergenceError  # noqa: F401
 from .solver.state import SolverState, init_state, warm_start_state  # noqa: F401
 
-# the JAX package's GSPMD and case-batched sharded solvers, not ported yet
-_UNPORTED = ("ShardedSolver", "batched_spmd_cavity_solve")
+# the JAX package's GSPMD solver, not ported yet
+_UNPORTED = ("ShardedSolver",)
 
 
 def __getattr__(name):
@@ -51,12 +51,16 @@ def __getattr__(name):
         from .parallel.spmd_step import SpmdSolver
 
         return SpmdSolver
+    if name == "batched_spmd_cavity_solve":
+        from .parallel.spmd_batch import batched_spmd_cavity_solve
+
+        return batched_spmd_cavity_solve
     if name == "run_hybrid_experiment":
         from .workflow.hybrid import run_hybrid_experiment
 
         return run_hybrid_experiment
     if name in _UNPORTED:
         raise AttributeError(
-            f"{name} is not ported to the PyTorch package yet (the sharded "
-            "solver parallel/: ROADMAP queue A, item A11)")
+            f"{name} is not ported to the PyTorch package yet (the GSPMD "
+            "solver parallel/domain.py: ROADMAP queue A, item A11)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -12,22 +12,30 @@ reference's defaults, plus `--device {cuda,cpu}` (default the card):
   sweep   - Re x mesh data-generation sweep -> HDF5 (needs h5py)
   train   - SR autoencoder training from sweep HDF5 (needs h5py)
 
-Not ported yet, each exiting non-zero with a message that names its
-ROADMAP item: `bench` (A9's bench), `plan` and `--spmd N > 1` /
-`--device-mesh` (A11).
+`--spmd N > 1` (cavity, bfs: the row-decomposed solve; hybrid: its fine
+phases) and sweep's `--device-mesh` / `--spmd M` run over the ranks of a
+process group, one process a card (or a CPU process with `--device cpu`):
+
+    torchrun --nproc-per-node 4 -m sr_for_cfd_tpu_torch.cli hybrid --spmd 4 ...
+
+Under torchrun each rank joins the group that its environment describes
+(NCCL for the card, gloo for the CPU); rank 0 prints the results and
+writes the files. Not ported yet, each exiting non-zero with a message
+that names its ROADMAP item: `bench` (A9's bench) and `plan` (A11).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 _A9 = ("is not ported to the PyTorch package yet (the solver throughput "
        "benchmark: ROADMAP queue A, item A9, waits for a benchmark PR; the "
        "root bench.py imports jax)")
-_A11 = ("is not ported to the PyTorch package yet (the sharded solver "
-        "parallel/: ROADMAP queue A, item A11)")
+_A11 = ("is not ported to the PyTorch package yet (the decomposition "
+        "planner parallel/planner.py: ROADMAP queue A, item A11)")
 
 
 def _device_arg(p: argparse.ArgumentParser):
@@ -73,8 +81,12 @@ def _solver_args(p: argparse.ArgumentParser, dt: float, scheme: str):
     p.add_argument("--rre-depth", type=int, default=6, metavar="K",
                    help="RRE window depth (snapshots per jump = K+1)")
     p.add_argument("--spmd", type=int, default=1, metavar="N",
-                   help="domain-decompose the solve over N devices; "
-                        f"N > 1 {_A11}")
+                   help="domain-decompose the solve over N ranks, one a "
+                        "device (interior rows sharded, ring halo exchange: "
+                        "parallel.spmd_step.SpmdSolver; nx must divide N; "
+                        "run under torchrun --nproc-per-node N). For "
+                        "`hybrid` this decomposes the fine phases; the "
+                        "coarse phase stays on one device")
     p.add_argument("--out", default=None, help="output base name / directory")
     p.add_argument("--quiet", action="store_true")
     _device_arg(p)
@@ -94,17 +106,72 @@ def _common_kw(args):
     )
 
 
-def _refuse_spmd(args):
-    if args.spmd > 1:
-        raise SystemExit(f"--spmd {args.spmd} {_A11}")
+def _join_process_group(device: str) -> bool:
+    """Join the process group that torchrun's environment describes (once;
+    False when there is none or it is joined already): NCCL with each rank
+    on the card of its LOCAL_RANK, or gloo for the CPU."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return False
+    if device == "cuda":
+        import torch
+
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if device == "cuda" else "gloo")
+    return True
+
+
+def _check_ranks(n: int) -> None:
+    """Exit unless the process group has the N ranks of `--spmd N`."""
+    from .parallel.mesh import world_size
+
+    if n > world_size():
+        raise SystemExit(
+            f"--spmd {n} needs {n} devices; backend has {world_size()} (one "
+            f"rank per device: torchrun --nproc-per-node {n} -m "
+            "sr_for_cfd_tpu_torch.cli ...)")
+
+
+def _rank0_print(*a, **k):
+    from .parallel.mesh import is_rank0
+
+    if is_rank0():
+        print(*a, **k)
+
+
+def _run_spmd(args, make_solver, out):
+    """Row-decomposed solve over --spmd ranks and the artifact suite (the
+    single-device path's outputs, written by rank 0)."""
+    import time
+
+    from .parallel.mesh import make_mesh
+    from .parallel.spmd_step import SpmdSolver
+
+    _check_ranks(args.spmd)
+    kw = _common_kw(args)
+    kw["spmd_devices"] = args.spmd
+    ny = args.ny or args.nx
+    case = make_solver(Re=args.re, nx=args.nx, ny=ny, **kw).case
+    solver = SpmdSolver(case, make_mesh(args.spmd, "x"), device=args.device)
+    t0 = time.time()
+    local = solver.solve()
+    secs = time.time() - t0
+    solver.save_results(out)
+    _rank0_print(f"Converged in {int(local.count)} iterations ({secs:.2f} "
+                 f"seconds) on {args.spmd} devices")
 
 
 def cmd_cavity(args):
-    from .solver.cases import create_lid_driven_cavity
+    from .solver.cases import create_lid_driven_cavity, make_cavity_solver
 
-    _refuse_spmd(args)
     ny = args.ny or args.nx
     out = args.out or f"cavity_Re{int(args.re)}"
+    if args.spmd > 1:
+        from functools import partial
+
+        _run_spmd(args, partial(make_cavity_solver, double_lid=args.double_lid), out)
+        return
     solver, iters, secs = create_lid_driven_cavity(
         Re=args.re, nx=args.nx, ny=ny, output_name=out,
         double_lid=args.double_lid, verbose=not args.quiet,
@@ -114,11 +181,13 @@ def cmd_cavity(args):
 
 
 def cmd_bfs(args):
-    from .solver.cases import create_bfs_case
+    from .solver.cases import create_bfs_case, make_bfs_solver
 
-    _refuse_spmd(args)
     ny = args.ny or args.nx
     out = args.out or f"bfs_Re{int(args.re)}"
+    if args.spmd > 1:
+        _run_spmd(args, make_bfs_solver, out)
+        return
     solver, iters, secs = create_bfs_case(
         Re=args.re, nx=args.nx, ny=ny, output_name=out,
         verbose=not args.quiet, **_common_kw(args),
@@ -129,7 +198,6 @@ def cmd_bfs(args):
 def cmd_hybrid(args):
     from .workflow.hybrid import run_hybrid_experiment
 
-    _refuse_spmd(args)
     kw = dict(
         dt=args.dt, scheme=args.scheme, dtype=args.dtype,
         fused_step=args.fused, pressure_sor=args.sor,
@@ -137,6 +205,11 @@ def cmd_hybrid(args):
         steps_per_kernel=args.steps_per_kernel,
         use_pallas=args.use_pallas,
     )
+    if args.spmd > 1:
+        # decompose the fine phases over N ranks (run_hybrid_experiment
+        # pins the coarse phase to one device)
+        _check_ranks(args.spmd)
+        kw["spmd_devices"] = args.spmd
     if args.rre:
         # RRE on the coarse phase's long pseudo-time march
         kw["coarse_overrides"] = {
@@ -173,16 +246,13 @@ def cmd_hybrid(args):
     # fields and solvers stay out of the JSON
     for key in ("hr_fields", "coarse_fields", "solvers"):
         results.pop(key)
-    print(json.dumps(results, indent=2, default=str))
+    _rank0_print(json.dumps(results, indent=2, default=str))
 
 
 def cmd_sweep(args):
     from .io.hdf5 import _h5py
     from .workflow.sweep import generate_training_data
 
-    if args.device_mesh:
-        raise SystemExit(f"--device-mesh {_A11}")
-    _refuse_spmd(args)
     _h5py()  # raises before any case is solved: the sweep writes HDF5
     path = generate_training_data(
         reynolds_numbers=args.re_list,
@@ -191,9 +261,11 @@ def cmd_sweep(args):
         double_lid=args.double_lid,
         dt=args.dt, scheme=args.scheme, dtype=args.dtype,
         max_iterations=args.max_iterations,
+        use_device_mesh=args.device_mesh,
+        spmd_devices=args.spmd,
         verbose=not args.quiet, device=args.device,
     )
-    print(f"Combined dataset: {path}")
+    _rank0_print(f"Combined dataset: {path}")
 
 
 def cmd_train(args):
@@ -296,9 +368,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="float32")
     p.add_argument("--max-iterations", type=int, default=100000)
     p.add_argument("--device-mesh", action="store_true",
-                   help=f"shard cases across the device mesh; {_A11}")
+                   help="shard cases across the ranks of the process group")
     p.add_argument("--spmd", type=int, default=1, metavar="M",
-                   help=f"decompose each case's grid over M devices; M > 1 {_A11}")
+                   help="decompose EACH case's grid over M ranks while "
+                        "cases shard over the rest (2-D case-x-grid mesh, "
+                        "parallel/spmd_batch.py); sizes not divisible by "
+                        "M fall back to case-parallel")
     p.add_argument("--out", default="results")
     p.add_argument("--quiet", action="store_true")
     _device_arg(p)
@@ -349,7 +424,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    joined = _join_process_group(getattr(args, "device", "cuda"))
+    try:
+        return args.fn(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

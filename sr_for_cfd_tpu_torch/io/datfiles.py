@@ -1,7 +1,8 @@
 """Plain-text .dat writers matching the reference formats byte-for-layout
 (a numpy-only copy of `sr_for_cfd_tpu/io/datfiles.py`, kept in the port
-so that it imports nothing of the JAX package; the full-field body is
-written by the Python writer only).
+so that it imports nothing of the JAX package). The full-field body goes
+through the native writer (`io/native_io.py`) where it builds, else the
+whole file is written in Python, as in the JAX package.
 
 Full-field dump (`LDV PyCFD given by sir.py:245-258`) and centerline
 profiles (`LDV PyCFD given by sir.py:260-285`); the centerline file is the
@@ -34,18 +35,18 @@ def extract_centerlines(
     }
 
 
-def save_full_field(
+def _full_field_header(mesh: MeshParameters, re: float, dt: float) -> str:
+    return f"# Reynolds number: {re}\n# Mesh: {mesh.nx}x{mesh.ny}\n# Time step: {dt}\n"
+
+
+def save_full_field_python(
     filename: str, var: np.ndarray, mesh: MeshParameters, re: float, dt: float
 ) -> None:
-    def write_header(f):
-        f.write(f"# Reynolds number: {re}\n")
-        f.write(f"# Mesh: {mesh.nx}x{mesh.ny}\n")
-        f.write(f"# Time step: {dt}\n")
-
+    """The whole full-field file written in Python (the fallback)."""
     nvar = var.shape[0]
     var_names = ["U", "V", "P"]
     with open(filename, "w") as f:
-        write_header(f)
+        f.write(_full_field_header(mesh, re, dt))
         for k in range(nvar):
             name = var_names[k] if k < 3 else "?"
             f.write(f"\n# ########## {name} velocity ############ \n")
@@ -53,6 +54,22 @@ def save_full_field(
                 for j in range(mesh.ny + 2):
                     f.write(f"{var[k, i, j]:.6f} \t")
                 f.write("\n")
+
+
+def save_full_field(
+    filename: str, var: np.ndarray, mesh: MeshParameters, re: float, dt: float
+) -> None:
+    """The header in Python, the body through the native writer; where that
+    is unavailable or fails, the whole file rewritten in Python (a failed
+    native attempt may have appended part of a body)."""
+    from . import native_io
+
+    with open(filename, "w") as f:
+        f.write(_full_field_header(mesh, re, dt))
+    if native_io.append_field_sections(filename, np.asarray(var)):
+        return
+    native_io.used["python"] += 1
+    save_full_field_python(filename, var, mesh, re, dt)
 
 
 def save_centerline_data(

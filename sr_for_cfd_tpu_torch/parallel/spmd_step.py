@@ -32,14 +32,15 @@ of `spmd_mg.py`, whose smoother takes the same kernel under `use_pallas`.
 One rank per process; on the card, one card per rank and an NCCL group
 (`torchrun --nproc-per-node N` on one host), on the CPU a gloo group.
 `checkpoint` / `resume_from` write and read the single-device solver's
-`.npz` snapshot. Not ported yet (ROADMAP queue A, item A11):
-`SpmdWorkflowAdapter`.
+`.npz` snapshot. `SpmdWorkflowAdapter` puts the solver behind the surface
+that the hybrid workflow drives (`workflow/hybrid.py`, `spmd_devices > 1`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Dict, List, Optional
@@ -620,14 +621,17 @@ def _make_rre_stage(case: CaseConfig, profile, group):
 
 class SpmdSolver:
     """Row-decomposed solver: the interior rows of the case split over the
-    ranks of `group` (`nx % n_ranks == 0`), each rank running the SIMPLE
-    step on its band with explicit halo exchange. Every rank constructs it
-    and calls its methods in the same order (they hold collectives).
-    Results match the single-device solver to the rounding of the sums.
-    `device` defaults to the card ("cuda", an NCCL group); pass
-    `device="cpu"` with a gloo group for the plain path."""
+    ranks of `group` (a process group, or a `mesh.Mesh` whose 'x' axis is
+    taken; `nx % n_ranks == 0`), each rank running the SIMPLE step on its
+    band with explicit halo exchange. Every rank constructs it and calls its
+    methods in the same order (they hold collectives). Results match the
+    single-device solver to the rounding of the sums. `device` defaults to
+    the card ("cuda", an NCCL group); pass `device="cpu"` with a gloo group
+    for the plain path."""
 
     def __init__(self, case: CaseConfig, group=None, device="cuda"):
+        if isinstance(group, ring.Mesh):
+            group = group.axis_group(AXIS)
         n_dev = ring.size_of(group)
         if case.mesh.nx % n_dev != 0:
             raise ValueError(
@@ -811,3 +815,84 @@ class SpmdSolver:
         from ..io.checkpoint import load_solver_count, load_solver_fields
 
         self.warm_start(load_solver_fields(path), count=load_solver_count(path))
+
+
+class SpmdWorkflowAdapter:
+    """`CFDSolver`'s surface over a `SpmdSolver`, for the hybrid workflow
+    (`workflow/hybrid.py`): the fine phases of the reference experiment run
+    row-decomposed behind the warm_start / precompile / solve / artifact
+    calls the workflow makes. `.mesh` is the case's MeshParameters, as on
+    `CFDSolver`; the ranks are those of `.spmd.group`. Every rank makes the
+    same calls; the artifacts are written from rank 0."""
+
+    def __init__(self, solver: SpmdSolver):
+        self.spmd = solver
+        self.case = solver.case
+
+    @property
+    def mesh(self):
+        return self.case.mesh
+
+    @property
+    def fluid(self):
+        return self.case.fluid
+
+    @property
+    def settings(self):
+        return self.case.settings
+
+    @property
+    def Var(self) -> np.ndarray:
+        return self.spmd.Var
+
+    @property
+    def residual_history(self):
+        return self.spmd.residual_history
+
+    def interior_fields(self) -> Dict[str, np.ndarray]:
+        return self.spmd.interior_fields()
+
+    def warm_start(self, fields: Dict[str, np.ndarray], count: int = 0) -> None:
+        self.spmd.warm_start(fields, count=count)
+
+    def precompile(self) -> float:
+        """The work the JAX package's AOT compile stands for, kept out of
+        the timed solve: on the card the kernel library is loaded and one
+        step from the state is run and discarded (each kernel's first
+        launch, row 9's parameter blocks, the V-cycle's transfer
+        operators). Returns the seconds spent."""
+        t0 = time.perf_counter()
+        s = self.spmd
+        if s.device.type == "cuda":
+            if s.case.settings.use_pallas:
+                from ..ops.kernel_lib import load_library
+
+                load_library()
+            s._step(s.local, s._nu)
+            torch.cuda.synchronize(s.device)
+        return time.perf_counter() - t0
+
+    def solve(self, output_base_name: str, verbose: bool = True,
+              save_results: bool = True, **_ignored):
+        """(iterations, elapsed seconds), writing `CFDSolver.solve`'s
+        artifact suite from rank 0; raises `DivergenceError` on a
+        non-finite residual."""
+        t0 = time.time()
+        local = self.spmd.solve()
+        if self.spmd.device.type == "cuda":
+            torch.cuda.synchronize(self.spmd.device)
+        elapsed = time.time() - t0
+        if local.diverged:
+            from ..solver.simple import DivergenceError
+
+            raise DivergenceError(
+                f"Solution diverged at iteration {int(local.count)}: "
+                f"RMS = {np.asarray(local.rms).tolist()} (NaN/Inf)."
+            )
+        if verbose and ring.is_rank0():
+            print(f"\nSimulation completed in {elapsed:.2f} seconds "
+                  f"({{'{AXIS}': {self.spmd.n_ranks}}} device mesh)")
+            print(f"Total iterations: {int(local.count)}")
+        if save_results:
+            self.spmd.save_results(output_base_name)
+        return int(local.count), elapsed

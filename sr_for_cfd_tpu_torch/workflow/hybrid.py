@@ -11,9 +11,13 @@ Differences from the JAX package:
   the warm-vs-cold centerline comparison plot; where h5py or matplotlib is
   not installed, those writers print a skip line and the .dat files are
   still written.
-* Fine phases with `spmd_devices > 1` raise `NotImplementedError`: the
-  JAX package runs them on its `SpmdSolver` behind `SpmdWorkflowAdapter`,
-  which is not ported yet (ROADMAP queue A, item A11).
+* Fine phases with `spmd_devices=N > 1` run row-decomposed on
+  `parallel.spmd_step.SpmdSolver` behind `SpmdWorkflowAdapter`, over the
+  first N ranks of the process group (`torchrun --nproc-per-node N`, one
+  card or one CPU process a rank), as the JAX package runs them over N
+  devices. Every rank runs the same call: the coarse phase and the SR are
+  repeated on each rank, the fine phases are decomposed, and only rank 0
+  prints and writes files (rank 0's output directory is every rank's).
 """
 
 from __future__ import annotations
@@ -92,21 +96,46 @@ def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
 def _make_solver(case: str, Re: float, nx: int, ny: int, dt: float,
                  scheme: str, convergence_criteria, max_iterations: int,
                  bc: Optional[BoundaryConditions], device, **kw) -> CFDSolver:
-    if kw.get("spmd_devices", 1) > 1:
-        raise NotImplementedError(
-            "not ported to the PyTorch package yet: fine phases with "
-            "spmd_devices>1 (the row-decomposed SpmdSolver behind the "
-            "workflow, SpmdWorkflowAdapter: ROADMAP queue A, item A11)")
     if case == "bfs":
-        return make_bfs_solver(
+        solver = make_bfs_solver(
             Re=Re, nx=nx, ny=ny, dt=dt, scheme=scheme,
             convergence_criteria=convergence_criteria,
             max_iterations=max_iterations, bc=bc, device=device, **kw)
-    return make_cavity_solver(
-        Re=Re, nx=nx, ny=ny, dt=dt, scheme=scheme,
-        convergence_criteria=convergence_criteria,
-        max_iterations=max_iterations, bc=bc,
-        double_lid=(case == "double_lid"), device=device, **kw)
+    else:
+        solver = make_cavity_solver(
+            Re=Re, nx=nx, ny=ny, dt=dt, scheme=scheme,
+            convergence_criteria=convergence_criteria,
+            max_iterations=max_iterations, bc=bc,
+            double_lid=(case == "double_lid"), device=device, **kw)
+    if kw.get("spmd_devices", 1) > 1:
+        from ..parallel.mesh import make_mesh
+
+        return _decomposed(solver, make_mesh(kw["spmd_devices"], "x"), device)
+    return solver
+
+
+def _decomposed(solver: CFDSolver, mesh, device):
+    """`solver`'s case row-decomposed over the 'x' axis of `mesh`, behind
+    the surface the workflow drives (a fine phase with spmd_devices > 1)."""
+    from ..parallel.spmd_step import SpmdSolver, SpmdWorkflowAdapter
+
+    return SpmdWorkflowAdapter(SpmdSolver(solver.case, mesh, device=device))
+
+
+def _rank0_output_dir(output_dir: Optional[str], save_results: bool) -> Optional[str]:
+    """The run directory of a decomposed run: rank 0's, made there and
+    sent to every rank."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import is_rank0
+
+    if save_results and output_dir is None and is_rank0():
+        output_dir = create_timestamped_output_dir()
+    if dist.is_initialized():
+        box = [output_dir]
+        dist.broadcast_object_list(box, src=0)
+        output_dir = box[0]
+    return output_dir
 
 
 def run_coarse_simulation(
@@ -300,11 +329,22 @@ def run_hybrid_experiment(
     """coarse -> SR -> warm-started fine (capped) vs cold-start fine, then
     the centerline comparison. Returns a results dict with the JAX
     package's keys, plus each phase's solver under "solvers" and the CUDA
-    kernel launches and RRE jumps of each phase under "kernel_launches"."""
+    kernel launches and RRE jumps of each phase under "kernel_launches".
+    With `spmd_devices > 1` every rank of the mesh makes this call; rank 0
+    prints and writes (see the module docstring)."""
+    decomposed = kw.get("spmd_devices", 1) > 1
+    writer = True
+    if decomposed:
+        from ..parallel.mesh import is_rank0
+
+        writer = is_rank0()
+        verbose = verbose and writer
+        output_dir = _rank0_output_dir(output_dir, save_results)
     if save_results:
         if output_dir is None:
             output_dir = create_timestamped_output_dir()
-        os.makedirs(output_dir, exist_ok=True)
+        if writer:
+            os.makedirs(output_dir, exist_ok=True)
     is_bfs = case == "bfs"
     if dt is None:
         dt = 2e-3 if is_bfs else 1e-3
@@ -331,7 +371,7 @@ def run_hybrid_experiment(
                 Re, lr_dim=lr_dim, dt=dt, scheme=scheme,
                 max_iterations=max_iterations_coarse, output_dir=run_dir,
                 bc=bc, case=case, verbose=verbose,
-                save_results=save_results, device=device, **coarse_kw)
+                save_results=save_results and writer, device=device, **coarse_kw)
 
     launches["coarse"] = _launches_since(before)
     before = kernel_launch_counts()
@@ -367,7 +407,7 @@ def run_hybrid_experiment(
     normal_cl = extract_centerlines(normal_solver.Var, normal_solver.mesh)
     diff_stats = centerline_diff_stats(ml_cl, normal_cl)
     plotted = False
-    if save_results:
+    if save_results and writer:
         plot = os.path.join(output_dir,
                             f"{prefix}_Re{fmt_re(Re)}_centerline_comparison.png")
         # the reference's BC subtitle (`format_bc_summary`); the plot

@@ -20,6 +20,16 @@ Either way a case stops on converged, diverged or `max_iterations` and its
 fields, count and residuals then stay as they were; the host prints one
 progress line per chunk of `chunk_size` iterations, and diverged cases are
 dropped from the result with a message.
+
+The JAX package shards the case axis over a device mesh; here
+`mesh_devices` (a `parallel.mesh.Mesh`) gives each rank of a process group
+its contiguous block of the cases, which it solves on one of the routes
+above. The ranks share their counts after each chunk and their fields at
+the end, so every rank returns the whole result. `generate_training_data`
+routes `spmd_devices=M > 1` to `parallel/spmd_batch.py` (cases over ranks,
+each case's rows over M of them) and writes its HDF5 files from rank 0.
+Where the case x M mesh would not take every rank (JAX leaves such devices
+idle), every rank takes the case-parallel path instead, with the notice.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from ..config import MeshParameters
 from ..io.hdf5 import save_fields_hdf5
 from ..ops.stencil import FaceFluxes
 from ..ops.step_kernels import simple_step_small_batched, small_fits
+from ..parallel import mesh as ring
 from ..solver.cases import make_cavity_solver
 from ..solver.simple import _active, simple_step
 from ..solver.state import SolverState
@@ -41,9 +52,6 @@ from ..utils.naming import fmt_re
 
 DEFAULT_REYNOLDS = tuple(range(100, 801, 100))
 DEFAULT_MESH_SIZES = (10, 50, 400)
-
-_A11 = ("is not ported to the PyTorch package yet (the sharded solver "
-        "parallel/: ROADMAP queue A, item A11)")
 
 
 def _auto_steps_per_kernel(settings_kw: Dict, max_iterations: int,
@@ -113,8 +121,9 @@ class _Batched:
                 self.diverged[b] = not bool(np.all(np.isfinite(rms[b])))
             i += st.steps_per_kernel
 
-    def fields(self, b: int) -> Dict[str, np.ndarray]:
-        return {c: getattr(self, c)[b, 1:-1, 1:-1].T.cpu().numpy().copy() for c in "uvp"}
+    def interior(self, b: int) -> torch.Tensor:
+        """Case b's (3, ny, nx) interior u, v, p."""
+        return torch.stack([getattr(self, c)[b, 1:-1, 1:-1].T for c in "uvp"])
 
 
 class _Looped:
@@ -147,9 +156,8 @@ class _Looped:
                 i += k_per_call
             self.states[b] = s
 
-    def fields(self, b: int) -> Dict[str, np.ndarray]:
-        return {c: getattr(self.states[b], c)[1:-1, 1:-1].T.cpu().numpy().copy()
-                for c in "uvp"}
+    def interior(self, b: int) -> torch.Tensor:
+        return torch.stack([getattr(self.states[b], c)[1:-1, 1:-1].T for c in "uvp"])
 
 
 def batched_cavity_solve(
@@ -168,15 +176,17 @@ def batched_cavity_solve(
 ) -> Tuple[Dict[float, Dict[str, np.ndarray]], np.ndarray]:
     """Solve one cavity mesh size for all Reynolds numbers: each case with
     its own nu = 1/Re, frozen once it stops (see the module docstring for
-    the two routes). `mesh_devices` (the JAX package's case sharding over a
-    device mesh) is not ported.
+    the two routes). With `mesh_devices` (a `parallel.mesh.Mesh`) the cases
+    are split over its 'dp' axis in contiguous blocks, which must be equal.
 
-    Returns ({Re: {u, v, p} interior (ny, nx) fields}, iterations[n]).
+    Returns ({Re: {u, v, p} interior (ny, nx) fields}, iterations[n]), on
+    every rank of the mesh.
     """
-    if mesh_devices is not None:
-        raise NotImplementedError(f"mesh_devices {_A11}")
     res = np.asarray(list(reynolds), dtype=np.float64)
     n = len(res)
+    mine = slice(0, n)
+    if mesh_devices is not None:
+        mine = ring.batch_sharding(mesh_devices).block(n)
     # mirror the sweep's own chunk size into the settings so options
     # validated against it (steps_per_kernel divisibility) line up
     settings_kw.setdefault("chunk_size", chunk_size)
@@ -188,32 +198,44 @@ def batched_cavity_solve(
     )
     case, state0 = solver.case, solver.state
     st = case.settings
-    nus = torch.tensor(1.0 / res, dtype=state0.u.dtype, device=state0.u.device)
+    dev = state0.u.device
+    nus = torch.tensor(1.0 / res[mine], dtype=state0.u.dtype, device=dev)
     batched = (st.fused_step and st.pressure_solver != "multigrid"
                and small_fits(nx + 2, ny + 2))
     cases = (_Batched if batched else _Looped)(case, solver.profile, state0, nus)
 
+    def everyone(x) -> torch.Tensor:
+        """Each rank's block of a per-case tensor, stacked in case order."""
+        return x if mesh_devices is None else ring.all_gather(x, mesh_devices)
+
+    def status():
+        """(counts, active, diverged) of all n cases."""
+        mine_t = torch.tensor(np.stack([cases.count, cases.active(), cases.diverged], 1),
+                              dtype=torch.float64, device=dev)
+        c, a, d = everyone(mine_t).cpu().numpy().T
+        return c.astype(np.int64), a.astype(bool), d.astype(bool)
+
     # each chunk advances every active case by at least one step
     for _ in range(max_iterations + 1):
         cases.chunk(chunk_size)
-        active = cases.active()
-        if verbose:
-            c = cases.count
-            print(f"  sweep {nx}x{ny}: iters {c.min()}..{c.max()}, "
+        count, active, diverged = status()
+        if verbose and ring.is_rank0():
+            print(f"  sweep {nx}x{ny}: iters {count.min()}..{count.max()}, "
                   f"{active.sum()}/{n} active")
         if not active.any():
             break
 
+    interior = everyone(torch.stack([cases.interior(b) for b in range(len(nus))]))
+    interior = interior.cpu().numpy()
     # diverged cases hold frozen NaN fields: DROP them (announced) like
     # the reference's per-case try/except - one bad Re must not poison
     # the training HDF5 (NaN stats -> NaN loss downstream)
-    diverged = cases.diverged
-    fields = {float(re_val): cases.fields(i)
+    fields = {float(re_val): {c: interior[i, k].copy() for k, c in enumerate("uvp")}
               for i, re_val in enumerate(res) if not diverged[i]}
-    if len(fields) < len(res):
+    if len(fields) < len(res) and ring.is_rank0():
         dropped = [float(r) for i, r in enumerate(res) if diverged[i]]
         print(f"  sweep {nx}x{ny}: DROPPED diverged cases Re={dropped}")
-    return fields, np.asarray(cases.count, dtype=np.int32)
+    return fields, count.astype(np.int32)
 
 
 # host reads of the batched route's residuals (one per launch)
@@ -238,12 +260,16 @@ def generate_training_data(
     Returns the combined file path. Each mesh size is isolated, so one
     failing size does not end the sweep (the reference wraps each case in
     try/except). `kw` goes to `batched_cavity_solve` (`device` among it).
-    The JAX package's device-mesh and decomposed sweeps (`use_device_mesh`,
-    `spmd_devices > 1`) are not ported."""
-    if use_device_mesh:
-        raise NotImplementedError(f"use_device_mesh=True {_A11}")
-    if spmd_devices > 1:
-        raise NotImplementedError(f"spmd_devices > 1 {_A11}")
+
+    `use_device_mesh` shards the cases over the ranks of the process group
+    (`make_mesh()`); `spmd_devices=M > 1` decomposes each case's grid M ways
+    while cases shard over the remaining ranks (the 2-D ('case', 'x') mesh,
+    `parallel/spmd_batch.py`). Mesh sizes not divisible by M, a mesh that
+    would leave ranks idle, or a decomposed path that cannot run, fall back
+    to the case-parallel path with a printed notice. Every rank makes the
+    call; rank 0 writes."""
+    from ..parallel.mesh import is_rank0, make_mesh, world_size
+
     os.makedirs(output_dir, exist_ok=True)
     bc_label = (
         "double_lid(u_top=1,u_bottom=1)" if double_lid else "lid_driven_cavity"
@@ -257,16 +283,61 @@ def generate_training_data(
             else "simulation_result_single_lid.h5"
         )
     combined_path = os.path.join(output_dir, combined_name)
+    mesh_devices = make_mesh() if use_device_mesh else None
 
     res_list = list(reynolds_numbers)
     for size in mesh_sizes:
         try:
-            fields, iters = batched_cavity_solve(
-                res_list, size, size, dt=dt, scheme=scheme,
-                double_lid=double_lid, verbose=verbose, **kw,
-            )
+            fields = None
+            if spmd_devices > 1 and size % spmd_devices == 0:
+                from ..parallel.spmd_batch import (
+                    batched_spmd_cavity_solve,
+                    make_case_x_mesh,
+                )
+
+                n_case = max(1, world_size() // spmd_devices)
+                while len(res_list) % n_case != 0:
+                    n_case -= 1
+                try:
+                    if n_case * spmd_devices < world_size():
+                        # JAX leaves such devices idle; a rank outside the
+                        # mesh would fall into the case-parallel path's
+                        # collectives alone, so every rank refuses alike
+                        raise ValueError(
+                            f"a {n_case}x{spmd_devices} case-x mesh leaves "
+                            f"{world_size() - n_case * spmd_devices} of the "
+                            f"{world_size()} ranks idle")
+                    fields, iters = batched_spmd_cavity_solve(
+                        res_list, size, size,
+                        make_case_x_mesh(n_case, spmd_devices),
+                        dt=dt, scheme=scheme, double_lid=double_lid,
+                        verbose=verbose, **kw,
+                    )
+                except ValueError as e:
+                    # refusals (too few ranks, settings the decomposed path
+                    # refuses) come before any solve: run case-parallel
+                    # rather than drop the mesh size from the dataset
+                    if verbose:
+                        print(f"  mesh {size}x{size}: decomposed path "
+                              f"unavailable ({e}) - running case-parallel")
+                except Exception as e:  # noqa: BLE001
+                    fields = None
+                    print(f"  mesh {size}x{size}: decomposed solve FAILED "
+                          f"({type(e).__name__}: {e}) - retrying "
+                          f"case-parallel")
+            elif spmd_devices > 1 and verbose:
+                print(f"  mesh {size}x{size}: nx % {spmd_devices} != 0"
+                      " - running case-parallel (no decomposition)")
+            if fields is None:
+                fields, iters = batched_cavity_solve(
+                    res_list, size, size, dt=dt, scheme=scheme,
+                    double_lid=double_lid, mesh_devices=mesh_devices,
+                    verbose=verbose, **kw,
+                )
         except Exception as e:  # noqa: BLE001 -- per-size error isolation
             print(f"  sweep error for mesh {size}x{size}: {e}")
+            continue
+        if not is_rank0():
             continue
         mesh = MeshParameters(nx=size, ny=size, lx=1.0, ly=1.0)
         for re_val, f in fields.items():

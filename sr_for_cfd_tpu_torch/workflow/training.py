@@ -22,7 +22,14 @@ Parity with the JAX package:
 
 Training and evaluation run with TF32 off (`sr.inference._no_tf32`), as
 SR inference does: cuDNN's convolutions would otherwise round to TF32.
-The JAX package's data-parallel mesh (`mesh=`) is not ported.
+
+Data-parallel training (`mesh=`, a `parallel.mesh.Mesh` over the ranks of a
+process group, as the JAX package shards its batches over the mesh's 'dp'
+axis): the global batch is rounded up to a multiple of the ranks, every rank
+draws the same batches and takes its contiguous block of each, and the
+gradients and the loss are summed over the ranks with one `all_reduce` a
+step and divided by the number of ranks, so that the update is that of the
+global batch mean. The weights stay the same on every rank.
 """
 
 from __future__ import annotations
@@ -101,15 +108,33 @@ def mse_loss(module: nn.Module, x_lr: torch.Tensor, x_hr: torch.Tensor) -> torch
     return torch.mean((module(x_lr) - x_hr) ** 2)
 
 
+def _mean_over_ranks(tensors: List[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """Each tensor's mean over the ranks of `mesh`, in one all_reduce."""
+    from ..parallel import mesh as ring
+
+    flat = ring.psum(torch.cat([t.reshape(-1) for t in tensors]), mesh)
+    flat = flat / torch.tensor(mesh.size, dtype=flat.dtype, device=flat.device)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return out
+
+
 def train_step(module: nn.Module, opt: Adam, x_lr: torch.Tensor,
-               x_hr: torch.Tensor) -> torch.Tensor:
+               x_hr: torch.Tensor, mesh=None) -> torch.Tensor:
     """One MSE step with its Adam update of the module's weights in place;
-    returns the loss (a device tensor, not read)."""
+    returns the loss (a device tensor, not read). With `mesh`, x_lr and
+    x_hr are this rank's block of the batch, and the gradients and the loss
+    are averaged over the ranks before the update."""
     params = list(module.parameters())
     loss = mse_loss(module, x_lr, x_hr)
-    grads = torch.autograd.grad(loss, params)
-    opt.update(params, list(grads))
-    return loss.detach()
+    grads = list(torch.autograd.grad(loss, params))
+    loss = loss.detach()
+    if mesh is not None:
+        *grads, loss = _mean_over_ranks(grads + [loss], mesh)
+    opt.update(params, grads)
+    return loss
 
 
 @dataclass
@@ -190,7 +215,8 @@ def epoch_indices(rng: np.random.Generator, n: int, steps: int, batch_size: int,
 def _fit(module: nn.Module, x_lr: np.ndarray, x_hr: np.ndarray,
          epochs: int = DEFAULT_EPOCHS, batch_size: int = DEFAULT_BATCH_SIZE,
          learning_rate: float = DEFAULT_LR, seed: int = 0, verbose: bool = True,
-         log_every: int = 50, keep_best: bool = True, device="cuda") -> TrainResult:
+         log_every: int = 50, keep_best: bool = True, device="cuda",
+         mesh=None) -> TrainResult:
     """Train `module` (its weights as given) in place; see
     `train_sr_autoencoder`."""
     from ..utils.device import resolve_device
@@ -200,6 +226,14 @@ def _fit(module: nn.Module, x_lr: np.ndarray, x_hr: np.ndarray,
     module = module.to(device)
     params = list(module.parameters())
     opt = Adam(params, learning_rate)
+    mine = slice(None)
+    if mesh is not None:
+        from ..parallel.mesh import batch_sharding
+
+        # round the batch up to a multiple of the ranks (the JAX package's
+        # rule: floor division would shrink the requested global batch)
+        batch_size = -(-batch_size // mesh.size) * mesh.size
+        mine = batch_sharding(mesh, mesh.axis_names[0]).block(batch_size)
     n = x_lr.shape[0]
     steps = max(1, n // batch_size)
     timer = StepTimer()
@@ -220,7 +254,8 @@ def _fit(module: nn.Module, x_lr: np.ndarray, x_hr: np.ndarray,
             with trace_annotation("training.block"):
                 for e in range(block):
                     losses = torch.stack([
-                        train_step(module, opt, x_lr_d[idx[e, s]], x_hr_d[idx[e, s]])
+                        train_step(module, opt, x_lr_d[idx[e, s, mine]],
+                                   x_hr_d[idx[e, s, mine]], mesh)
                         for s in range(steps)])
                     mean = torch.mean(losses)
                     better = mean < best_loss
@@ -268,17 +303,15 @@ def train_sr_autoencoder(
 ) -> TrainResult:
     """Train a SuperResolutionAE, initialised from `seed` as Flax
     initialises it, with shuffled mini-batches and MSE. With `keep_best`
-    the weights of the epoch with the lowest mean loss are kept. The JAX
-    package's data-parallel `mesh` is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (data-parallel training) is not ported to the PyTorch "
-            "package yet (ROADMAP queue A, item A11)")
+    the weights of the epoch with the lowest mean loss are kept. With
+    `mesh` (`parallel.mesh.make_mesh`), data-parallel over its ranks (see
+    the module docstring): every rank of the mesh makes the call."""
     module = SuperResolutionAE(lr_dim, hr_dim, latent_dim)
     flax_init_(module, torch.Generator().manual_seed(seed))
     return _fit(module, x_lr, x_hr, epochs=epochs, batch_size=batch_size,
                 learning_rate=learning_rate, seed=seed, verbose=verbose,
-                log_every=log_every, keep_best=keep_best, device=device)
+                log_every=log_every, keep_best=keep_best, device=device,
+                mesh=mesh)
 
 
 def _predict(model: nn.Module, params, x: np.ndarray) -> np.ndarray:

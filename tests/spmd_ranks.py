@@ -81,6 +81,115 @@ def mg_solve(x, b, plan_args, kw):
     return mesh.all_gather(out).numpy(), cycles
 
 
+def hybrid(kw):
+    """`run_hybrid_experiment(**kw)` on the CPU (spmd_devices in kw): the
+    iterations of each phase and the three phases' whole fields."""
+    from sr_for_cfd_tpu_torch.workflow.hybrid import run_hybrid_experiment
+
+    res = run_hybrid_experiment(device="cpu", **kw)
+    return dict(iterations=[res[f"{p}_iterations"] for p in ("coarse", "ml", "normal")],
+                fields={p: s.Var for p, s in res["solvers"].items()})
+
+
+def warm_fine(fields, kw):
+    """`run_fine_simulation_with_ml_init` from the (ny, nx) `fields` on the
+    CPU (spmd_devices in kw): (iterations, whole fields)."""
+    from sr_for_cfd_tpu_torch.workflow.hybrid import run_fine_simulation_with_ml_init
+
+    solver, iterations, _ = run_fine_simulation_with_ml_init(
+        ml_initial_fields=fields, device="cpu", **kw)
+    return iterations, solver.Var
+
+
+def cli(argv):
+    """`cli.main(argv)`'s standard output on this rank, with matplotlib
+    blocked (the plots' skip lines instead of the plots)."""
+    import contextlib
+    import io
+    import sys
+
+    from sr_for_cfd_tpu_torch import cli as tcli
+
+    buf = io.StringIO()
+    saved = sys.modules.get("matplotlib")
+    sys.modules["matplotlib"] = None
+    try:
+        with contextlib.redirect_stdout(buf):
+            tcli.main(argv)
+    finally:
+        if saved is None:
+            del sys.modules["matplotlib"]
+        else:
+            sys.modules["matplotlib"] = saved
+    return buf.getvalue()
+
+
+def batched_spmd(n_case, n_x, reynolds, n, kw):
+    """`batched_spmd_cavity_solve` on an n_case x n_x mesh: (fields, counts)."""
+    from sr_for_cfd_tpu_torch.parallel.spmd_batch import (
+        batched_spmd_cavity_solve,
+        make_case_x_mesh,
+    )
+
+    return batched_spmd_cavity_solve(reynolds, n, n, make_case_x_mesh(n_case, n_x),
+                                     device="cpu", verbose=False, **kw)
+
+
+def sweep_over_ranks(reynolds, n, kw):
+    """`batched_cavity_solve` with the cases split over every rank."""
+    from sr_for_cfd_tpu_torch.parallel.mesh import make_mesh
+    from sr_for_cfd_tpu_torch.workflow.sweep import batched_cavity_solve
+
+    return batched_cavity_solve(reynolds, n, n, mesh_devices=make_mesh(), device="cpu",
+                                verbose=False, **kw)
+
+
+def sweep_files(out_dir, reynolds, sizes, kw):
+    """`generate_training_data(**kw)` on the CPU: the combined file's path
+    and what this rank printed."""
+    import contextlib
+    import io
+
+    from sr_for_cfd_tpu_torch.workflow.sweep import generate_training_data
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        path = generate_training_data(reynolds, sizes, output_dir=out_dir, device="cpu",
+                                      **kw)
+    return path, buf.getvalue()
+
+
+def shardings(n):
+    """Every rank's block of a leading axis of `n` under `batch_sharding`
+    and `replicated` on the mesh over all ranks: [(start, stop) of each
+    rank] for each, in rank order."""
+    from sr_for_cfd_tpu_torch.parallel import mesh
+
+    whole = mesh.make_mesh()
+    out = []
+    for sharding in (mesh.batch_sharding(whole), mesh.replicated(whole)):
+        block = sharding.block(n)
+        mine = torch.tensor([[block.start, block.stop]], dtype=torch.int64)
+        out.append([tuple(r) for r in mesh.all_gather(mine).tolist()])
+    return out
+
+
+def dp_fit(state, x_lr, x_hr, kw):
+    """Data-parallel `_fit` over every rank from the weights `state`: (the
+    loss history, the kept weights, whether every rank kept the same)."""
+    from sr_for_cfd_tpu_torch.models.autoencoder import SuperResolutionAE
+    from sr_for_cfd_tpu_torch.parallel import mesh
+    from sr_for_cfd_tpu_torch.workflow.training import _fit
+
+    module = SuperResolutionAE(x_lr.shape[1], x_hr.shape[1])
+    module.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    out = _fit(module, x_lr, x_hr, device="cpu", mesh=mesh.make_mesh(), **kw)
+    flat = torch.cat([v.reshape(-1) for v in out.params.values()])
+    gathered = mesh.all_gather(flat.unsqueeze(0)).reshape(mesh.size_of(), -1)
+    same = bool(torch.equal(gathered, flat.expand_as(gathered)))
+    return out.loss_history, {k: v.numpy() for k, v in out.params.items()}, same
+
+
 def _worker(rank, world, store, out_dir, cases):
     torch.set_num_threads(1)
     import torch.distributed as dist

@@ -59,8 +59,8 @@ def _converged(out):
 
 def test_cavity_via_main_matches_jax_s(tmp_path, capsys):
     """The same iteration count and the same artifact suite as the JAX
-    package's CLI (12^2, float64, UPWIND at dt 8e-3, to convergence)."""
-    argv = ["cavity", "--re", "100", "--nx", "12", "--dt", "8e-3", "--scheme", "UPWIND",
+    package's CLI (12^2, float64, UPWIND at dt 3.2e-2, to convergence)."""
+    argv = ["cavity", "--re", "100", "--nx", "12", "--dt", "3.2e-2", "--scheme", "UPWIND",
             "--dtype", "float64", "--chunk-size", "2000", "--quiet"]
     jcli.main(argv + ["--out", str(tmp_path / "jax" / "cav")])
     jn = _converged(capsys.readouterr().out)
@@ -113,13 +113,13 @@ def test_hybrid_rre_fine_wiring(monkeypatch, capsys):
 
 def test_sweep_and_train_via_main(tmp_path, capsys, monkeypatch):
     """The JAX CLI test's sweep (Re 100 and 200 at 10^2 and 20^2, float64
-    UPWIND; cut to 200 steps) gives the JAX CLI's combined HDF5 groups and
+    UPWIND; cut to 50 steps) gives the JAX CLI's combined HDF5 groups and
     fields (within 1e-10); training on it through `main` prints its loss
     and exports the msgpack triple (TensorFlow kept out: the Keras export
     prints its skip line)."""
     monkeypatch.setitem(sys.modules, "tensorflow", None)
     argv = ["sweep", "--re-list", "100", "200", "--mesh-sizes", "10", "20", "--dt", "2e-3",
-            "--dtype", "float64", "--scheme", "UPWIND", "--max-iterations", "200",
+            "--dtype", "float64", "--scheme", "UPWIND", "--max-iterations", "50",
             "--quiet"]
     jcli.main(argv + ["--out", str(tmp_path / "jd")])
     tcli.main(argv + ["--device", "cpu", "--out", str(tmp_path / "d")])
@@ -153,10 +153,31 @@ def test_sweep_and_train_via_main(tmp_path, capsys, monkeypatch):
     (["sweep", "--spmd", "2", "--device", "cpu"], "A11"),
     (["sweep", "--device-mesh", "--device", "cpu"], "A11"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else v)
-def test_unported_subcommands_exit_naming_their_item(argv, item):
+def test_unported_subcommands_exit_naming_their_item(argv, item, monkeypatch):
+    """`bench` and `plan` exit non-zero naming their ROADMAP item. The
+    decomposed commands, which exited naming A11 before they were ported
+    (A11 items 1-2), now need a process group of N ranks: without one,
+    `cavity`, `bfs` and `hybrid` with `--spmd 2` exit before any solve,
+    naming `torchrun --nproc-per-node 2`, and `sweep` hands `--spmd` and
+    `--device-mesh` to `generate_training_data`."""
+    import sr_for_cfd_tpu_torch.workflow.sweep as sweep
+
+    if argv[0] == "sweep":
+        seen = {}
+        monkeypatch.setattr(sweep, "generate_training_data",
+                            lambda **kw: seen.update(kw) or "combined.h5")
+        tcli.main(argv)
+        assert (seen["spmd_devices"], seen["use_device_mesh"]) == \
+            ((2, False) if "--spmd" in argv else (1, True))
+        return
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)
-    assert e.value.code != 0 and f"item {item}" in str(e.value.code)
+    text = str(e.value.code)
+    if argv[0] in ("bench", "plan"):
+        assert e.value.code != 0 and f"item {item}" in text
+    else:
+        assert text.startswith("--spmd 2 needs 2 devices; backend has 1 (")
+        assert "torchrun --nproc-per-node 2" in text
 
 
 def test_sweep_without_h5py_raises_before_solving(monkeypatch, tmp_path):

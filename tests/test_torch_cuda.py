@@ -1235,3 +1235,70 @@ def test_training_step_on_the_card_matches_the_cpu(card):
     assert abs(lg - lc) <= 1e-4 * abs(lc)
     scale = max(float(p.abs().max()) for p in pc)
     assert max(float((a - b).abs().max()) for a, b in zip(pg, pc)) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_native_dat_writer_on_the_card_machine(card, tmp_path):
+    """The card's machine builds the native .dat writer (its CUDA toolkit
+    brings a host compiler); a 400^2 field's file is the Python writer's,
+    byte for byte."""
+    from sr_for_cfd_tpu_torch.config import MeshParameters
+    from sr_for_cfd_tpu_torch.io import datfiles, native_io
+
+    assert native_io.unavailable() is None
+    var = np.random.default_rng(40).standard_normal((3, 402, 402))
+    mesh = MeshParameters(nx=400, ny=400)
+    before = native_io.used["native"]
+    datfiles.save_full_field(str(tmp_path / "n.dat"), var, mesh, 400.0, 2e-3)
+    assert native_io.used["native"] == before + 1
+    datfiles.save_full_field_python(str(tmp_path / "p.dat"), var, mesh, 400.0, 2e-3)
+    assert (tmp_path / "n.dat").read_bytes() == (tmp_path / "p.dat").read_bytes()
+
+
+@pytest.fixture
+def one_rank_nccl(card, tmp_path):
+    """A one-rank NCCL world for the row-decomposed solver (none joined
+    before)."""
+    import os
+
+    import torch.distributed as dist
+
+    from sr_for_cfd_tpu_torch.parallel import mesh
+
+    if dist.is_initialized():
+        pytest.skip("a process group is joined already")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    mesh.init_single_rank(card, str(tmp_path))
+    yield card
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_adapter_solve_is_bit_equal_to_the_bare_solver(one_rank_nccl):
+    """SpmdWorkflowAdapter (precompile, warm start, solve) on one rank: the
+    64^2 BFS on the sharded V-cycle with row 9 as its smoother, bit-equal
+    to the same SpmdSolver driven bare, with equal counts."""
+    from sr_for_cfd_tpu_torch.parallel.mesh import make_mesh
+    from sr_for_cfd_tpu_torch.parallel.spmd_kernels import shard_rb_sweep
+    from sr_for_cfd_tpu_torch.parallel.spmd_step import SpmdSolver, SpmdWorkflowAdapter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    case = make_bfs_solver(Re=400, nx=64, ny=64, dt=2e-3, scheme="UPWIND", dtype="float32",
+                           use_pallas=True, pressure_solver="multigrid", max_iterations=20,
+                           device=one_rank_nccl).case
+    rng = np.random.default_rng(64)
+    warm = {c: rng.standard_normal((64, 64)) * 0.05 for c in "uvp"}
+    adapter = SpmdWorkflowAdapter(SpmdSolver(case, make_mesh(1, "x"), device=one_rank_nccl))
+    adapter.warm_start(warm)
+    assert adapter.precompile() > 0.0
+    before = shard_rb_sweep.launches
+    iterations, _ = adapter.solve("unused", verbose=False, save_results=False)
+    assert shard_rb_sweep.launches > before
+    bare = SpmdSolver(case, make_mesh(1, "x"), device=one_rank_nccl)
+    bare.warm_start(warm)
+    bare.solve()
+    assert iterations == bare.local.count == 20
+    assert adapter.spmd.inner_counts == bare.inner_counts
+    got, want = adapter.interior_fields(), bare.interior_fields()
+    for c in "uvp":
+        np.testing.assert_array_equal(got[c], want[c])

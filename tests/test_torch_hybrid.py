@@ -32,9 +32,9 @@ def test_small_hybrid_matches_jax(tmp_path):
     iteration counts, same SR fields to float32 rounding (the SR path is
     float32 in both packages), same warm-vs-cold centerline differences
     (the JAX function returns those, not the fine fields)."""
-    kw = dict(Re=100, lr_dim=10, hr_dim=32, case="bfs", max_iterations_coarse=100,
-              max_iterations_ml=30, max_iterations_normal=40, verbose=False,
-              save_results=False, dtype="float64", chunk_size=50,
+    kw = dict(Re=100, lr_dim=10, hr_dim=32, case="bfs", max_iterations_coarse=50,
+              max_iterations_ml=15, max_iterations_normal=20, verbose=False,
+              save_results=False, dtype="float64", chunk_size=25,
               pressure_solver="multigrid",
               coarse_overrides={"pressure_solver": "sweeps"})
     rj = jax_hybrid(output_dir=tempfile.mkdtemp(dir=tmp_path), **kw)

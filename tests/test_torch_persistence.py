@@ -60,27 +60,27 @@ def test_npz_snapshots_are_interchangeable(tmp_path):
 
 def test_snapshot_every_and_resume_match_jax(tmp_path):
     """`snapshot_every` writes the snapshot at the same counts as JAX's
-    (chunk boundaries 200 and 400 of 500 steps, every 200), and
+    (chunk boundaries 100 and 200 of 250 steps, every 100), and
     `resume_from` carries the count on: each package resumed from its own
     snapshot reaches the same count and fields (float64, within 1e-10) as
     JAX's, and the uninterrupted run's."""
-    kw = dict(CAVITY, max_iterations=500)
+    kw = dict(CAVITY, max_iterations=250)
     js = jcases.make_cavity_solver(**kw)
-    js.solve(str(tmp_path / "jax"), verbose=False, save_results=False, snapshot_every=200)
+    js.solve(str(tmp_path / "jax"), verbose=False, save_results=False, snapshot_every=100)
     ts = tcases.make_cavity_solver(device="cpu", **kw)
-    ts.solve(str(tmp_path / "port"), verbose=False, save_results=False, snapshot_every=200)
+    ts.solve(str(tmp_path / "port"), verbose=False, save_results=False, snapshot_every=100)
     assert ts.nVar == js.nVar == 3
     jsnap, tsnap = str(tmp_path / "jax_snapshot.npz"), str(tmp_path / "port_snapshot.npz")
-    assert tck.load_solver_count(tsnap) == tck.load_solver_count(jsnap) == 400
-    kw["max_iterations"] = 600
+    assert tck.load_solver_count(tsnap) == tck.load_solver_count(jsnap) == 200
+    kw["max_iterations"] = 300
     jr = jcases.make_cavity_solver(**kw)
     jr.resume_from(jsnap)
     jn, _ = jr.solve(verbose=False, save_results=False)
     tr = tcases.make_cavity_solver(device="cpu", **kw)
     tr.resume_from(tsnap)
-    assert tr.state.count == 400
+    assert tr.state.count == 200
     tn, _ = tr.solve(verbose=False, save_results=False)
-    assert tn == jn == 600
+    assert tn == jn == 300
     jf, tf = jr.interior_fields(), tr.interior_fields()
     for k in "uvp":
         np.testing.assert_allclose(tf[k], jf[k], rtol=0, atol=1e-10)

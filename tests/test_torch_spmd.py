@@ -12,8 +12,9 @@ tolerances:
   equal outer count, fields within 1e-10;
 * `use_pallas=True`, `pressure_solver='sweeps'` (the per-rank sweep
   kernel's plain version on the CPU, JAX's kernel in interpret mode), the
-  settings of `tests/test_parallel.py`'s Pallas SPMD tests: the 32^2 cavity
-  and the 32x16 BFS, float32: equal outer count, fields within 2e-5
+  settings of `tests/test_parallel.py`'s Pallas SPMD tests with half their
+  steps: the 32^2 cavity and the 32x16 BFS, float32: equal outer count,
+  fields within 2e-5
   (float32 sums taken in other orders, and XLA:CPU contracts multiply-adds
   where the port does not).
 
@@ -46,17 +47,17 @@ RRE_CAVITY = dict(Re=100, nx=32, ny=32, dt=8e-3, scheme="UPWIND", dtype="float64
                   convergence_criteria={"u": 1e-30, "v": 1e-30, "p": 1e-30},
                   rre_every=10, rre_depth=4, rre_min_count=10)
 PALLAS_CAVITY = dict(Re=100, nx=32, ny=32, dt=2e-3, scheme="UPWIND", dtype="float32",
-                     chunk_size=60, max_iterations=120, inner_max_iter=60,
+                     chunk_size=30, max_iterations=60, inner_max_iter=60,
                      use_pallas=True)
 PALLAS_BFS = dict(Re=200, nx=32, ny=16, dt=2e-3, scheme="UPWIND", dtype="float32",
-                  chunk_size=40, max_iterations=80, inner_max_iter=40, use_pallas=True)
+                  chunk_size=20, max_iterations=40, inner_max_iter=40, use_pallas=True)
 HALO_KW = dict(dx=1 / 32, dy=1 / 32, dt=1e-3, rho=1.0, volp=1 / 32 ** 2, tol=1e-7,
                max_iter=400)
 ONE_RANK = {
     "sweeps": dict(Re=100, nx=16, ny=16, dt=2e-3, scheme="QUICK", dtype="float64",
-                   chunk_size=15, max_iterations=30),
+                   chunk_size=8, max_iterations=16),
     "multigrid": dict(Re=100, nx=32, ny=32, dt=2e-3, scheme="UPWIND", dtype="float64",
-                      chunk_size=10, max_iterations=20, pressure_solver="multigrid"),
+                      chunk_size=5, max_iterations=10, pressure_solver="multigrid"),
 }
 
 
@@ -154,7 +155,7 @@ def test_one_rank_matches_single_device(tmp_path):
 
     cases = {k: ("solve_case", dict(maker="make_cavity_solver", kw=kw))
              for k, kw in ONE_RANK.items()}
-    warm_kw = dict(ONE_RANK["sweeps"], max_iterations=20)
+    warm_kw = dict(ONE_RANK["sweeps"], max_iterations=12)
     cases["warm"] = ("warm_solve_save", dict(
         maker="make_cavity_solver", kw=warm_kw, fields=_warm_fields(), count=5,
         out_base=str(tmp_path / "spmd" / "cavity")))
@@ -171,7 +172,7 @@ def test_one_rank_matches_single_device(tmp_path):
     ref.warm_start(_warm_fields(), count=5)
     ref.solve(str(tmp_path / "single" / "cavity"), verbose=False)
     count, fields = got["warm"]
-    assert count == ref.state.count == 20
+    assert count == ref.state.count == 12
     for k in "uvp":
         np.testing.assert_array_equal(fields[k], ref.interior_fields()[k])
     for suffix in ("_full.dat", "_centerline.dat"):

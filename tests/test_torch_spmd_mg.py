@@ -29,10 +29,10 @@ N = 64
 PLAN_ARGS = (N, N, 1.0 / N, 1.0 / N, 1.0 / N ** 2)
 MG_TOL = 2e-4
 PALLAS_MG = dict(Re=100, nx=N, ny=N, dt=2e-3, scheme="UPWIND", dtype="float32",
-                 chunk_size=20, max_iterations=40, pressure_solver="multigrid",
+                 chunk_size=10, max_iterations=20, pressure_solver="multigrid",
                  use_pallas=True)
 PLAIN_MG = dict(Re=100, nx=N, ny=N, dt=2e-3, scheme="UPWIND", dtype="float64",
-                chunk_size=10, max_iterations=20, pressure_solver="multigrid")
+                chunk_size=5, max_iterations=10, pressure_solver="multigrid")
 
 
 def _problem():

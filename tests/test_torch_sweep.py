@@ -233,15 +233,36 @@ def test_loader_dummy_fallback_is_jax_s(tmp_path):
 
 
 @pytest.mark.parametrize("call", ["mesh_devices", "use_device_mesh", "spmd_devices"])
-def test_sharded_sweeps_raise_naming_a11(call, tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
-        if call == "mesh_devices":
-            tsweep.batched_cavity_solve([100], 10, 10, mesh_devices=object(), device="cpu")
-        else:
-            tsweep.generate_training_data(
-                [100], [10], output_dir=str(tmp_path), device="cpu",
-                **({"use_device_mesh": True} if call == "use_device_mesh"
-                   else {"spmd_devices": 2}))
+def test_sharded_sweeps_raise_naming_a11(call, tmp_path, capsys):
+    """The sharded sweeps, which raised naming A11 before they were ported
+    (A11 items 1-2), run without a process group on the one-rank mesh of
+    this process: `mesh_devices` gives the unsharded solve bit for bit,
+    `use_device_mesh` writes the unsharded sweep's file, and
+    `spmd_devices=2`, for which one rank is too few, falls back to the
+    case-parallel path with JAX's notice."""
+    from sr_for_cfd_tpu_torch.parallel.mesh import make_mesh
+
+    kw = dict(max_iterations=5, chunk_size=5, dtype="float64", device="cpu", verbose=False)
+    if call == "mesh_devices":
+        got, got_n = tsweep.batched_cavity_solve([100, 200], 10, 10, mesh_devices=make_mesh(1),
+                                                 **kw)
+        want, want_n = tsweep.batched_cavity_solve([100, 200], 10, 10, **kw)
+        np.testing.assert_array_equal(got_n, want_n)
+        for re_val in want:
+            for c in "uvp":
+                np.testing.assert_array_equal(got[re_val][c], want[re_val][c])
+        return
+    extra = {"use_device_mesh": True} if call == "use_device_mesh" else {"spmd_devices": 2}
+    got = tsweep.generate_training_data([100], [10], output_dir=str(tmp_path / "a"),
+                                        **dict(kw, verbose=True), **extra)
+    out = capsys.readouterr().out
+    if call == "spmd_devices":
+        assert ("mesh 10x10: decomposed path unavailable (case-x mesh needs 1x2=2 "
+                "devices; backend has 1) - running case-parallel") in out
+    want = tsweep.generate_training_data([100], [10], output_dir=str(tmp_path / "b"), **kw)
+    a, b = (thdf5.load_paired_reynolds_multi([p], 10, 10) for p in (got, want))
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
 
 
 def test_generate_training_data_isolates_a_failing_size(tmp_path, capsys):

@@ -137,15 +137,15 @@ def _solve_both(jfn, tfn, tmp_path, **kw):
 def test_create_lid_driven_cavity_matches_jax(tmp_path):
     _solve_both(jcases.create_lid_driven_cavity, tcases.create_lid_driven_cavity,
                 tmp_path, Re=100, nx=16, ny=16, dt=2e-3, dtype="float64",
-                max_iterations=150)
+                max_iterations=75)
 
 
 def test_create_bfs_case_matches_jax(tmp_path):
     """With log_convergence=True both write the log; its iteration and rms
     columns agree (the last column is wall time)."""
     _solve_both(jcases.create_bfs_case, tcases.create_bfs_case, tmp_path,
-                nx=12, ny=10, dtype="float64", max_iterations=150,
-                log_convergence=True, chunk_size=50)
+                nx=12, ny=10, dtype="float64", max_iterations=75,
+                log_convergence=True, chunk_size=25)
 
     def columns(path):
         rows = [line.split("\t") for line in path.read_text().splitlines()]
@@ -162,24 +162,27 @@ def test_create_custom_case_matches_jax(tmp_path):
     _solve_both(jcases.create_custom_case, tcases.create_custom_case, tmp_path,
                 mesh_params=dict(nx=14, ny=12, lx=1.0, ly=1.0),
                 fluid_params=dict(Re=100.0),
-                solver_params=dict(dt=2e-3, dtype="float64", max_iterations=120,
+                solver_params=dict(dt=2e-3, dtype="float64", max_iterations=60,
                                    scheme="UPWIND"),
                 bc_params={"u_boundaries": {"top": lid, "bottom": lid}})
 
 
 def test_top_level_exports_match_jax():
     """Every name the JAX package exports at its top level, eagerly or
-    lazily, is exported by the port, SpmdSolver included, except the GSPMD
-    and case-batched sharded solvers, whose lookup names ROADMAP item
-    A11."""
-    sharded = ("ShardedSolver", "batched_spmd_cavity_solve")
+    lazily, is exported by the port, SpmdSolver and the case-batched
+    sharded solver included, except the GSPMD solver, whose lookup names
+    ROADMAP item A11."""
+    sharded = ("ShardedSolver",)
+    from sr_for_cfd_tpu_torch.parallel.spmd_batch import batched_spmd_cavity_solve
     from sr_for_cfd_tpu_torch.parallel.spmd_step import SpmdSolver
 
     assert sr_for_cfd_tpu_torch.SpmdSolver is SpmdSolver
+    assert sr_for_cfd_tpu_torch.batched_spmd_cavity_solve is batched_spmd_cavity_solve
     assert callable(sr_for_cfd_tpu_torch.SpmdSolver)
     public = [n for n, v in vars(sr_for_cfd_tpu).items()
               if not n.startswith("_") and not isinstance(v, types.ModuleType)]
-    lazy = ["SRModel", "ml_super_resolution", "run_hybrid_experiment"]
+    lazy = ["SRModel", "ml_super_resolution", "run_hybrid_experiment",
+            "batched_spmd_cavity_solve"]
     for name in public + lazy:
         assert hasattr(sr_for_cfd_tpu_torch, name), name
         j = getattr(sr_for_cfd_tpu, name)

@@ -199,12 +199,20 @@ def test_adam_is_optax_s():
 
 
 def test_training_refuses_the_mesh_and_plots(tmp_path):
-    """The data-parallel mesh is refused, naming A11; `plot_dir` (refused
-    until the plots were ported) writes the JAX package's comparison
-    plots, one a sample, under the same names."""
+    """The data-parallel mesh, refused naming A11 before it was ported (A11
+    item 2): on the one-rank mesh of this process it trains bit for bit as
+    without a mesh. `plot_dir` (refused until the plots were ported) writes
+    the JAX package's comparison plots, one a sample, under the same
+    names."""
+    from sr_for_cfd_tpu_torch.parallel.mesh import make_mesh
+
     x_lr, x_hr = _data(4)
-    with pytest.raises(NotImplementedError, match="A11"):
-        ttr.train_sr_autoencoder(x_lr, x_hr, 10, 20, epochs=1, mesh=object(), device="cpu")
+    kw = dict(epochs=2, batch_size=3, verbose=False, device="cpu")
+    one = ttr.train_sr_autoencoder(x_lr, x_hr, 10, 20, mesh=make_mesh(1), **kw)
+    none = ttr.train_sr_autoencoder(x_lr, x_hr, 10, 20, **kw)
+    assert one.loss_history == none.loss_history
+    for k, v in none.params.items():
+        assert torch.equal(one.params[k], v), k
     module = tae.SuperResolutionAE(10, 20)
     res, comps = np.array([100.0, 100.0, 100.0, 200.0]), np.array(["u", "v", "p", "u"])
     stats = {f"{k}{d}_{c}": 1.0 for k in ("mean", "std") for d in (10, 20) for c in "uvp"}
