@@ -206,6 +206,21 @@ no result line:
    step) against mesh=None under deterministic cuDNN on 21 smooth seeded
    10->400 samples for 20 epochs: loss history and weights bit-equal, s
    per epoch. 9b's launches join the kernels line.
+10. the padded-row decomposition and the planner, after 9, on the same
+   group. 10a: `ShardedSolver` on `make_mesh(1, "x")` over the 398x398
+   cavity (nx + 2 = 400 divides over 1, 2, 4 and 8 ranks; Re=1000, QUICK,
+   dt=1e-3, float32, use_pallas) on multigrid and on sweeps, 20 steps
+   each, counters set to 0 just before each solve and read just after:
+   row 9 must launch; bit-equal, with equal per-step inner counts, to
+   `SpmdSolver` on the same group and case; equal per-step inner counts
+   and fields within 1e-4 relative of the single-device solver (rows 1 and
+   2); ms/iter and row 9 launches per step printed. 10b: `python -m
+   sr_for_cfd_tpu_torch.cli plan` on the 400x400 cavity (multigrid,
+   use_pallas, float32) for 1, 2, 4 and 8 devices as a subprocess: the
+   single-card ms/step measured on this card, each count's census on that
+   many gloo CPU ranks; it must exit 0 with a feasible row per count and
+   a source naming the card; its table is printed. 10a's launches join
+   the kernels line.
 
 The last lines are a `{"kernels": [...]}` line, the card's name and power
 limit as nvidia-smi prints them, and `{"ok": true, "device": {...}}`.
@@ -2667,16 +2682,16 @@ SHARD_SOR = 1.9  # min(1.9, optimal_sor(2048, 2048)) = 1.9
 FLOP_SHARD_CELL = 13  # shard_rb.cu: Laplacian, residual, f + r * inv_ap
 
 
-def shard_block(p, b, rank, rows, h):
-    """(ext, b_ext) of `rank`'s band with an h-row halo, as
-    spmd_step.assemble and spmd_kernels.extend_b_halo build them: the
-    padded field's rows, the ghost row repeated beyond the domain; the
-    interior right-hand side, zero outside the domain and on the y-ghost
+def shard_block(p, b, r0, rows, h):
+    """(ext, b_ext) of the band of `rows` interior rows from row `r0` with an
+    h-row halo, as spmd_step.assemble and spmd_kernels.extend_b_halo build
+    them: the padded field's rows, the ghost row repeated beyond the domain;
+    the interior right-hand side, zero outside the domain and on the y-ghost
     columns."""
     import torch
 
     nx = p.shape[0] - 2
-    gi = torch.arange(rank * rows - h, (rank + 1) * rows + h, device=p.device)
+    gi = torch.arange(r0 - h, r0 + rows + h, device=p.device)
     ext = p[(gi + 1).clamp(0, nx + 1)].contiguous()
     inside = (gi >= 0) & (gi < nx)
     b_ext = torch.zeros_like(ext)
@@ -2810,11 +2825,11 @@ def phase_shard_kernels(device):
     for kb in (1, 8):
         h = 2 * kb
         for rank in range(SPMD_RANKS):
-            ext, b_ext = shard_block(p, b, rank, rows, h)
+            ext, b_ext = shard_block(p, b, rank * rows, rows, h)
             worst = max(worst, check_shard(gates, f"kb={kb} rank {rank}", ext, b_ext,
                                            rank * rows, dict(kw, h=h, kb=kb)))
         stitched = torch.cat([
-            shard_rb_sweep(*shard_block(p, b, r, rows, h), r * rows, h=h, kb=kb, **kw)[0]
+            shard_rb_sweep(*shard_block(p, b, r * rows, rows, h), r * rows, h=h, kb=kb, **kw)[0]
             for r in range(SPMD_RANKS)])
         f = p
         b_whole = torch.zeros((n + 4, n + 2), dtype=p.dtype, device=p.device)
@@ -2835,7 +2850,7 @@ def phase_shard_kernels(device):
     # a kb past the fused form's shared memory runs on the one-sweep form
     kb = 34
     assert not shard_rb.fits(kb)
-    ext, b_ext = shard_block(p, b, 3, rows, 2 * kb)
+    ext, b_ext = shard_block(p, b, 3 * rows, rows, 2 * kb)
     call = dict(kw, h=2 * kb, kb=kb)
     worst = max(worst, check_shard(gates, f"kb={kb} rank 3 (past the fused budget)", ext,
                                    b_ext, 3 * rows, call))
@@ -2850,7 +2865,7 @@ def phase_shard_kernels(device):
     times = {}
     for kb in (8, 1):
         h = 2 * kb
-        ext, b_ext = shard_block(p, b, rank, rows, h)
+        ext, b_ext = shard_block(p, b, rank * rows, rows, h)
         call = dict(h=h, kb=kb, **kw)
         t = dict(
             ms=cuda_ms(lambda: shard_rb_sweep(ext, b_ext, rank * rows, **call), 100),
@@ -3249,6 +3264,227 @@ def phase_dp_training(device):
         f"{a.loss_history[-1]:.6f}; s per epoch {per_epoch}")
     return dict(s_per_epoch=per_epoch, losses=[a.loss_history[0], a.loss_history[-1]])
 
+# phase 10: the padded-row ShardedSolver (its main path joins the kernels
+# line) and the planner's command line
+SHARDED_N = 398  # nx + 2 = 400 divides over 1, 2, 4 and 8 ranks
+SHARDED_RANKS = 4  # the padded split whose unequal bands row 9 is held at
+SHARDED_STEPS = 20
+# ShardedSolver against the single-device solver, relative to the largest
+# |value|: row 9 (and the sharded V-cycle) against rows 1 and 2, float32
+# sums taken in other orders
+SHARDED_REL_TOL = 1e-4
+PLAN_ARGS = ["--case", "cavity", "--re", "1000", "--nx", "400", "--dt", "1e-3",
+             "--scheme", "QUICK", "--dtype", "float32", "--pressure-solver", "multigrid",
+             "--use-pallas", "--devices", "1", "2", "4", "8"]
+PLAN_TIMEOUT = 300
+
+
+def recorded_counts(solver):
+    """Wrap an SPMD solver's step so that each step's inner counts are
+    kept (the list returned)."""
+    per_step = []
+    step = solver._step
+
+    def recorded(s, nu):
+        s, counts = step(s, nu)
+        per_step.append({k: int(v) for k, v in counts.items()})
+        return s, counts
+
+    solver._step = recorded
+    return per_step
+
+
+def uneven_band_gates(device):
+    """Row 9 at the blocks of `grid_sharding`'s padded split of the 398^2
+    case over SHARDED_RANKS ranks (interior rows 99/100/100/99 from rows
+    0/99/199/299: odd first rows and heights), built as the two routes
+    build them on those bands: the sweeps route's blocks at kb 8 and 1
+    (the ghost row repeated beyond the domain) and the V-cycle's level-0
+    smoother at its kb (zero rows beyond the domain, zero columns), every
+    block planned on the narrowest band. On seeded fields the fused form,
+    the staged form and the plain version must be bit-equal, or the run
+    fails. Returns (gates, the largest own-row difference)."""
+    import numpy as np
+    import torch
+
+    from sr_for_cfd_tpu_torch.ops.multigrid import MG_SMOOTHER_SOR
+    from sr_for_cfd_tpu_torch.ops.sweeps import optimal_sor
+    from sr_for_cfd_tpu_torch.parallel import presets
+    from sr_for_cfd_tpu_torch.parallel.domain import padded_bands
+    from sr_for_cfd_tpu_torch.parallel.mesh import Mesh, grid_sharding
+    from sr_for_cfd_tpu_torch.parallel.spmd_mg import plan_spmd_mg
+    from sr_for_cfd_tpu_torch.parallel.spmd_step import sweep_blocks
+
+    n = SHARDED_N
+    bands = padded_bands(grid_sharding(Mesh(range(SHARDED_RANKS), ("x",),
+                                            (SHARDED_RANKS,))), n)
+    narrow = min(r for _, r in bands)
+    case = presets.cavity_case(dict(presets.SWEEPS_400, nx=n, ny=n), 1)
+    st, m = case.settings, case.mesh
+    p, ff, geo = seeded_problem(np.random.default_rng(n), n, n, 1.0, 1.0, device)
+    b = (geo["rho"] / geo["dt"]) * ff.divergence_sum()
+    gates, worst = [], 0.0
+    kw = dict(nxg=n, inv_dx2=1.0 / geo["dx"] ** 2, inv_dy2=1.0 / geo["dy"] ** 2,
+              volp=geo["volp"], sor=min(st.pressure_sor, optimal_sor(n, n)))
+    kb_step = sweep_blocks(st.pressure_check_every, narrow // 2)[0]
+    for kb in sorted({kb_step, 8, 1}, reverse=True):
+        for r0, rows in bands:
+            ext, b_ext = shard_block(p, b, r0, rows, 2 * kb)
+            worst = max(worst, check_shard(
+                gates, f"{n}^2 band {r0}+{rows} of {SHARDED_RANKS}, sweeps block, kb={kb}",
+                ext, b_ext, r0, dict(kw, h=2 * kb, kb=kb)))
+
+    plan = plan_spmd_mg(m.nx, m.ny, m.dx, m.dy, m.volp, SHARDED_RANKS, np.dtype(np.float32),
+                        min_size=st.mg_min_size)
+    (inv_dx2, inv_dy2), volp0 = plan.setup.spacings[0], plan.setup.volp_levels[0]
+    kb = sweep_blocks(st.mg_n_pre, max(1, narrow // 2))[0]
+    h = 2 * kb
+    g = torch.Generator(device=device).manual_seed(n)
+    x = torch.randn((n, n), generator=g, device=device)
+    bl = torch.randn((n, n), generator=g, device=device)
+
+    def zero_padded(f, r0, rows):
+        out = f.new_zeros((rows + 2 * h, n + 2))
+        lo, hi = max(r0 - h, 0), min(r0 + rows + h, n)
+        out[lo - (r0 - h):hi - (r0 - h), 1:-1] = f[lo:hi]
+        return out
+
+    for r0, rows in bands:
+        worst = max(worst, check_shard(
+            gates, f"{n}^2 band {r0}+{rows} of {SHARDED_RANKS}, multigrid level 0, kb={kb}",
+            zero_padded(x, r0, rows), zero_padded(bl, r0, rows), r0,
+            dict(nxg=n, inv_dx2=inv_dx2, inv_dy2=inv_dy2, volp=volp0, sor=MG_SMOOTHER_SOR,
+                 h=h, kb=kb)))
+    return gates, worst
+
+
+def phase_sharded(device):
+    """10a: `ShardedSolver` on the one-rank mesh over the 398^2 cavity
+    (Re=1000, QUICK, dt=1e-3, float32, use_pallas) on sweeps and on
+    multigrid, SHARDED_STEPS steps each, counters set to 0 just before and
+    read just after its solves: row 9 must launch in each; bit-equal,
+    with equal per-step counts, to `SpmdSolver` on the same group and case;
+    equal per-step counts and fields within SHARDED_REL_TOL of the
+    single-device `CFDSolver` (rows 1 and 2). One rank holds the whole
+    grid, so row 9 is first held at the unequal bands of the four-rank
+    split (`uneven_band_gates`, outside the counted solves)."""
+    import numpy as np
+    import torch
+
+    from sr_for_cfd_tpu_torch import ShardedSolver, SpmdSolver
+    from sr_for_cfd_tpu_torch.parallel import presets
+    from sr_for_cfd_tpu_torch.parallel.mesh import make_mesh
+    from sr_for_cfd_tpu_torch.solver.cases import make_cavity_solver
+    from sr_for_cfd_tpu_torch.solver.simple import simple_step
+    from sr_for_cfd_tpu_torch.workflow.hybrid import kernel_launch_counts
+
+    row9_gates, row9_worst = uneven_band_gates(device)
+    totals, record = None, dict(row9_gates=row9_gates, row9_max_abs_err=row9_worst)
+    for route in ("multigrid", "sweeps"):
+        kw = dict(presets.SWEEPS_400, nx=SHARDED_N, ny=SHARDED_N, pressure_solver=route,
+                  max_iterations=SHARDED_STEPS, chunk_size=SHARDED_STEPS)
+        single = make_cavity_solver(device=device, **kw)
+        case = single.case
+        sharded = ShardedSolver(case, make_mesh(1, "x"), device=device)
+        per_sharded = recorded_counts(sharded)
+        torch.cuda.synchronize()
+        reset_counters()
+        t = time.perf_counter()
+        state = sharded.solve()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t
+        launches = kernel_launch_counts()
+        totals = launches if totals is None else {k: totals[k] + v for k, v in launches.items()}
+        row9 = launches["shard_rb_pressure"]
+        if state.count != SHARDED_STEPS or sharded.bands != ((0, SHARDED_N),):
+            fail(f"sharded {route}: {state.count} steps on bands {sharded.bands}")
+        if row9 <= 0:
+            fail(f"sharded {route}: the per-rank sweep kernel (row 9) did not launch")
+        spmd = SpmdSolver(case, make_mesh(1, "x"), device=device)
+        per_spmd = recorded_counts(spmd)
+        spmd.solve()
+        got, bare = sharded.global_fields(), spmd.global_fields()
+        if per_sharded != per_spmd or not all(np.array_equal(got[c], bare[c]) for c in "uvp"):
+            fail(f"sharded {route}: differs from SpmdSolver (counts {per_sharded[:3]} vs "
+                 f"{per_spmd[:3]})")
+        s, per_single = single.state, []
+        for _ in range(SHARDED_STEPS):
+            s, counts = simple_step(s, case, single.profile, single._nu, with_counts=True)
+            per_single.append({k: int(v) for k, v in counts.items()})
+        torch.cuda.synchronize()
+        worst = 0.0
+        for c in "uvp":
+            want = getattr(s, c).cpu().numpy()
+            err = float(np.max(np.abs(got[c] - want)))
+            scale = max(1.0, float(np.max(np.abs(want))))
+            worst = max(worst, err / scale)
+            if not (np.all(np.isfinite(got[c])) and err <= SHARDED_REL_TOL * scale):
+                fail(f"sharded {route}: {c} differs from the single-device solver by {err:.3e}")
+        if per_sharded != per_single:
+            steps = [i for i, (a, b) in enumerate(zip(per_sharded, per_single)) if a != b]
+            fail(f"sharded {route}: inner counts differ from the single-device solver at "
+                 f"steps {steps[:5]}: {per_sharded[steps[0]]} vs {per_single[steps[0]]}")
+        inner = {k: sum(c[k] for c in per_sharded) / SHARDED_STEPS for k in "uvp"}
+        record[route] = dict(steps=SHARDED_STEPS, s=elapsed,
+                             ms_per_iter=1e3 * elapsed / SHARDED_STEPS,
+                             row9_per_step=row9 / SHARDED_STEPS, inner_per_step=inner,
+                             rel_err_vs_single=worst,
+                             row2_launches=launches["mg_vcycle_pressure"])
+        log(f"  sharded {SHARDED_N}^2 {route}, 1 rank: {SHARDED_STEPS} steps in {elapsed:.3f} s, "
+            f"{record[route]['ms_per_iter']:.3f} ms/iter; inner per step {inner}; row 9 "
+            f"launches {row9} ({row9 / SHARDED_STEPS:.2f} a step), row 2 "
+            f"{launches['mg_vcycle_pressure']}; bit-equal to SpmdSolver with equal counts; "
+            f"against CFDSolver equal counts, worst relative field difference {worst:.3e} "
+            f"(limit {SHARDED_REL_TOL})")
+    return totals, record
+
+
+def phase_plan(device):
+    """10b: `python -m sr_for_cfd_tpu_torch.cli plan` on the 400^2 cavity
+    (multigrid, use_pallas, float32) for 1, 2, 4 and 8 devices, as a user
+    runs it: the single-device ms/step measured on this card, each count's
+    census on that many gloo CPU ranks in child processes. It must exit 0
+    with one feasible row per count and a source naming the card."""
+    import signal
+
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix="srcfd_plan_") as d:
+        out = os.path.join(d, "plan.json")
+        t = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sr_for_cfd_tpu_torch.cli", "plan", *PLAN_ARGS,
+             "--device", device, "--json", out],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=PLAN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            fail(f"plan: no exit within {PLAN_TIMEOUT} s")
+        secs = time.perf_counter() - t
+        if proc.returncode != 0:
+            fail(f"plan: exit code {proc.returncode}: {stderr[-3000:]}")
+        with open(out) as f:
+            plan = json.load(f)
+    rows = plan["rows"]
+    kind = torch.cuda.get_device_name(0)
+    if [r["n_devices"] for r in rows] != [1, 2, 4, 8] or not all(r["feasible"] for r in rows):
+        fail(f"plan: rows {rows}")
+    if kind not in plan["ms_per_step_source"]:
+        fail(f"plan: the source {plan['ms_per_step_source']!r} does not name {kind!r}")
+    for line in stdout.strip().splitlines():
+        log(f"  plan | {line}")
+    log(f"  plan: exit 0 in {secs:.1f} s; single-card {plan['single_chip_ms_per_step']:.4f} "
+        f"ms/step ({plan['ms_per_step_source']}), trips {plan['trips_per_step']}")
+    keep = ("n_devices", "predicted_ms_per_step", "speedup_vs_single", "bound_by",
+            "collective_calls_per_step", "ca_compute_inflation")
+    return dict(s=secs, single_ms=plan["single_chip_ms_per_step"],
+                source=plan["ms_per_step_source"], trips=plan["trips_per_step"],
+                recommended=plan["recommended_devices"],
+                rows=[{k: r[k] for k in keep} for r in rows])
+
 
 def main():
     if not os.path.isdir(os.path.join(HERE, "sr_for_cfd_tpu_torch")):
@@ -3356,6 +3592,17 @@ def main():
     log(f"phase decomposed workflow: {time.perf_counter() - t:.1f} s, launches "
         f"{by_path['adapter_hybrid']}")
     log(f"phase decomposed workflow record: {json.dumps(decomposed, default=str)}")
+
+    # phase 10: its main path (10a) joins the kernels line's launches
+    t = time.perf_counter()
+    by_path["sharded"], sharded = phase_sharded(device)
+    shard_row["gates"] += sharded.pop("row9_gates")
+    shard_row["max_abs_err"] = max(shard_row["max_abs_err"], sharded.pop("row9_max_abs_err"))
+    plan = phase_plan(device)
+    torch.cuda.synchronize()
+    log(f"phase sharded and plan: {time.perf_counter() - t:.1f} s, launches "
+        f"{by_path['sharded']}")
+    log(f"phase sharded and plan record: {json.dumps(dict(sharded=sharded, plan=plan))}")
 
     def launches(kernel):
         counts = {path: c[kernel] for path, c in by_path.items()}

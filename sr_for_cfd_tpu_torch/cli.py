@@ -11,6 +11,10 @@ reference's defaults, plus `--device {cuda,cpu}` (default the card):
   hybrid  - coarse -> SR -> warm-started fine vs normal (the product)
   sweep   - Re x mesh data-generation sweep -> HDF5 (needs h5py)
   train   - SR autoencoder training from sweep HDF5 (needs h5py)
+  plan    - decomposition planner: the single-device ms/step measured on
+            the card, each device count's collective census on that many
+            gloo CPU ranks in child processes, the link model -> a
+            recommended --spmd N
 
 `--spmd N > 1` (cavity, bfs: the row-decomposed solve; hybrid: its fine
 phases) and sweep's `--device-mesh` / `--spmd M` run over the ranks of a
@@ -20,8 +24,8 @@ process group, one process a card (or a CPU process with `--device cpu`):
 
 Under torchrun each rank joins the group that its environment describes
 (NCCL for the card, gloo for the CPU); rank 0 prints the results and
-writes the files. Not ported yet, each exiting non-zero with a message
-that names its ROADMAP item: `bench` (A9's bench) and `plan` (A11).
+writes the files. Not ported yet, exiting non-zero with a message that
+names its ROADMAP item: `bench` (A9's bench).
 """
 
 from __future__ import annotations
@@ -34,8 +38,6 @@ import sys
 _A9 = ("is not ported to the PyTorch package yet (the solver throughput "
        "benchmark: ROADMAP queue A, item A9, waits for a benchmark PR; the "
        "root bench.py imports jax)")
-_A11 = ("is not ported to the PyTorch package yet (the decomposition "
-        "planner parallel/planner.py: ROADMAP queue A, item A11)")
 
 
 def _device_arg(p: argparse.ArgumentParser):
@@ -316,8 +318,45 @@ def cmd_bench(args):
     raise SystemExit(f"bench {_A9}")
 
 
+def _plan_case(args):
+    from .solver.cases import make_bfs_solver, make_cavity_solver
+
+    kw = dict(
+        Re=args.re, nx=args.nx, ny=args.ny or args.nx, dt=args.dt,
+        scheme=args.scheme, dtype=args.dtype,
+        pressure_solver=args.pressure_solver, use_pallas=args.use_pallas,
+        fused_step=args.fused, steps_per_kernel=args.steps_per_kernel,
+        device=args.device,
+    )
+    make = make_bfs_solver if args.case == "bfs" else make_cavity_solver
+    if args.case == "bfs" and args.ny is None:
+        del kw["ny"]  # BFS default ny tracks the 10x3 domain aspect
+    return make(**kw).case
+
+
 def cmd_plan(args):
-    raise SystemExit(f"plan (the decomposition planner) {_A11}")
+    """Decomposition planner (parallel/planner.py): each device count's
+    census on that many gloo CPU ranks in child processes (NCCL takes one
+    rank a card), the single-device ms/step measured here on `--device`
+    (unless `--ms-per-step` gives it), the link model -> the recommended
+    --spmd device count."""
+    from .parallel import planner
+
+    case = _plan_case(args)
+    censuses = {}
+    if not args.no_subprocess:
+        for n in sorted(set(args.devices)):
+            if n > 1 and case.mesh.nx % n == 0:
+                censuses[n] = planner.census_in_ranks(case, n)
+    plan = planner.plan_case(
+        case, ms_single=args.ms_per_step, device_counts=args.devices,
+        trip_window=args.trip_window, censuses=censuses, device=args.device,
+    )
+    print(planner.format_plan(plan))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(plan, f, indent=1)
+        print(f"wrote {args.json}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -396,7 +435,12 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("bench", help=f"solver throughput benchmark: {_A9}")
     p.set_defaults(fn=cmd_bench)
 
-    p = sub.add_parser("plan", help=f"decomposition planner: {_A11}")
+    p = sub.add_parser(
+        "plan",
+        help="decomposition planner: recommended --spmd device count "
+             "from the collective census and the link model (no "
+             "multi-card node needed)",
+    )
     p.add_argument("--case", choices=["cavity", "bfs"], default="cavity")
     p.add_argument("--re", type=float, default=1000)
     p.add_argument("--nx", type=int, default=400)
@@ -408,7 +452,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pressure-solver", choices=["sweeps", "multigrid"],
                    default="multigrid")
     p.add_argument("--use-pallas", action="store_true")
-    p.add_argument("--fused", action="store_true")
+    p.add_argument("--fused", action="store_true",
+                   help="measure the single-device baseline with the fused "
+                        "whole-step kernel (the decomposed path runs "
+                        "per-rank kernels instead)")
     p.add_argument("--steps-per-kernel", type=int, default=1)
     p.add_argument("--devices", type=int, nargs="+", default=[1, 2, 4, 8],
                    help="candidate device counts")
@@ -417,7 +464,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trip-window", type=int, default=6,
                    help="steps to measure inner-loop trip counts over")
     p.add_argument("--json", default=None, help="write the plan as JSON")
-    p.add_argument("--no-subprocess", action="store_true")
+    p.add_argument("--no-subprocess", action="store_true",
+                   help="no census child processes: every count past 1 "
+                        "comes back infeasible")
+    _device_arg(p)
     p.set_defaults(fn=cmd_plan)
     return ap
 

@@ -222,22 +222,33 @@ class _Ops:
         if lvl + 1 >= len(sizes):
             return self.smooth(x, b, lvl, self.coarsest_sweeps, 1.5)
         x = self.smooth(x, b, lvl, self.n_pre, self.sor)
-        r = b - self.lap(x, lvl)
-        r_row, rc_t, p_row, pc_t = self.mats[lvl]
-        nf, nc = sizes[lvl][0], sizes[lvl + 1][0]
-        exact2x = nc * 2 == nf
+        r_c = self.restrict(b - self.lap(x, lvl), lvl)
+        e_c = self.v_cycle(torch.zeros_like(r_c), r_c, lvl + 1)
+        x = x + self.prolong(e_c, lvl)
+        return self.smooth(x, b, lvl, self.n_post, self.sor)
+
+    def _exact2x(self, lvl):
+        nf, nc = self.setup.sizes[lvl][0], self.setup.sizes[lvl + 1][0]
+        return nc * 2 == nf, nc
+
+    def restrict(self, r, lvl):
+        """Level lvl's residual -> level lvl + 1's right-hand side."""
+        r_row, rc_t, _, _ = self.mats[lvl]
+        exact2x, nc = self._exact2x(lvl)
         if r_row is not None:
             r = row_restrict_exact2x(r, nc) if exact2x else r_row @ r
         if rc_t is not None:
             r = r @ rc_t
-        r_c = r * self.setup.scales[lvl]
-        e_c = self.v_cycle(torch.zeros_like(r_c), r_c, lvl + 1)
+        return r * self.setup.scales[lvl]
+
+    def prolong(self, e_c, lvl):
+        """Level lvl + 1's correction -> level lvl."""
+        _, _, p_row, pc_t = self.mats[lvl]
         if pc_t is not None:
             e_c = e_c @ pc_t
         if p_row is not None:
-            e_c = row_prolong_exact2x(e_c) if exact2x else p_row @ e_c
-        x = x + e_c
-        return self.smooth(x, b, lvl, self.n_post, self.sor)
+            e_c = row_prolong_exact2x(e_c) if self._exact2x(lvl)[0] else p_row @ e_c
+        return e_c
 
 
 def mg_solve_pressure(

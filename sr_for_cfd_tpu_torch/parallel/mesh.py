@@ -28,15 +28,23 @@ group with axis names and a shape, and the process group over them.
 `make_mesh(n, axis)` takes the first n ranks; without a process group it is
 the one-rank mesh of this process, on which the collectives above are
 plain copies. Every function here takes a `Mesh` where it takes a `group`.
-`batch_sharding` and `replicated` say which block of a leading axis a rank
-holds. `grid_sharding` belongs to the GSPMD path (`parallel/domain.py`),
-which is not ported (ROADMAP queue A, item A11).
+`batch_sharding`, `replicated` and `grid_sharding` say which block of a
+leading axis a rank holds; `grid_sharding` splits the padded (nx + 2) rows
+of a solver field, the split of `parallel/domain.ShardedSolver`.
+
+`census()` records what the collectives move, for the traffic census of
+`parallel/comm_budget.py`: while it is open, each call adds (primitive,
+payload bytes) to the scope of the loop it runs in. A `ring_exchange`
+counts as the JAX package's two `ppermute`s, one a direction, each with its
+payload. The solvers mark their inner loops with `inner_loop()`, which costs
+one context manager per inner solve when no census is open.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -50,6 +58,74 @@ COUNTS = {"exchanges": 0, "p2p": 0, "all_reduce": 0, "all_gather": 0}
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+
+
+class Census:
+    """What the collectives of a run moved: `top` holds the (primitive,
+    payload bytes) records made outside any inner loop, `loops` one
+    [records, trips] pair per inner loop in program order. An inner loop
+    stops after `trip_cap` trips, so that a census costs a few trips of
+    each loop whatever the flow."""
+
+    def __init__(self, trip_cap: int):
+        self.trip_cap = trip_cap
+        self.top: List[Tuple[str, int]] = []
+        self.loops: List[list] = []
+        self._inside = False
+
+
+_CENSUS: Optional[Census] = None
+
+
+@contextlib.contextmanager
+def census(trip_cap: int):
+    """Record the collectives run inside the block into the yielded
+    `Census`."""
+    global _CENSUS
+    if _CENSUS is not None:
+        raise RuntimeError("a census is already recording")
+    _CENSUS = Census(trip_cap)
+    try:
+        yield _CENSUS
+    finally:
+        _CENSUS = None
+
+
+def _always() -> bool:
+    return True
+
+
+@contextlib.contextmanager
+def inner_loop():
+    """Mark an inner solve's loop. Yields `trip()`, which the loop calls
+    as the last test before each trip: without a census it is always
+    True; under one it counts the trip, and it is False once the census's
+    trip cap is reached."""
+    c = _CENSUS
+    if c is None:
+        yield _always
+        return
+    loop = [[], 0]
+    c.loops.append(loop)
+
+    def trip() -> bool:
+        if loop[1] >= c.trip_cap:
+            return False
+        loop[1] += 1
+        return True
+
+    c._inside = True
+    try:
+        yield trip
+    finally:
+        c._inside = False
+
+
+def _record(name: str, x: torch.Tensor) -> None:
+    c = _CENSUS
+    if c is not None:
+        (c.loops[-1][0] if c._inside else c.top).append(
+            (name, x.numel() * x.element_size()))
 
 
 class Mesh:
@@ -155,18 +231,23 @@ class Sharding:
             raise ValueError(f"mesh axes {mesh.axis_names} have no {axis_name!r}")
         self.mesh, self.axis_name = mesh, axis_name
 
-    def block(self, n: int) -> slice:
-        """This rank's rows of a leading axis of `n`; raises when the blocks
-        would not be equal, as a `NamedSharding` refuses such a shape."""
+    def blocks(self, n: int) -> List[slice]:
+        """The rows of a leading axis of `n` at each position along the
+        axis; raises when the blocks would not be equal, as a
+        `NamedSharding` refuses such a shape."""
         if self.axis_name is None:
-            return slice(0, n)
+            return [slice(0, n)]
         k = self.mesh.shape[self.axis_name]
         if n % k != 0:
             raise ValueError(
                 f"a leading axis of {n} does not divide over the {k} ranks of mesh "
                 f"axis {self.axis_name!r}")
-        i = self.mesh.coords()[self.axis_name]
-        return slice(i * (n // k), (i + 1) * (n // k))
+        return [slice(i * (n // k), (i + 1) * (n // k)) for i in range(k)]
+
+    def block(self, n: int) -> slice:
+        """This rank's rows of a leading axis of `n`."""
+        parts = self.blocks(n)
+        return parts[0] if self.axis_name is None else parts[self.mesh.coords()[self.axis_name]]
 
 
 def batch_sharding(mesh: Mesh, axis_name: str = "dp") -> Sharding:
@@ -177,6 +258,13 @@ def batch_sharding(mesh: Mesh, axis_name: str = "dp") -> Sharding:
 def replicated(mesh: Mesh) -> Sharding:
     """The whole leading axis on every rank of the mesh."""
     return Sharding(mesh, None)
+
+
+def grid_sharding(mesh: Mesh, axis_name: str = "x") -> Sharding:
+    """Shard a padded (nx + 2, ny + 2) solver field along x: (nx + 2) / n
+    rows a rank, the domain's ghost rows on the end ranks, so that those
+    hold one interior row fewer than the others."""
+    return Sharding(mesh, axis_name)
 
 
 def rank_of(group=None) -> int:
@@ -223,6 +311,8 @@ def ring_exchange(send_up: torch.Tensor, send_dn: torch.Tensor,
         ops.append(dist.P2POp(dist.isend, send_up, _peer(group, up_peer), group))
         ops.append(dist.P2POp(dist.irecv, from_dn, _peer(group, up_peer), group))
     COUNTS["exchanges"] += 1
+    _record("ppermute", send_up)
+    _record("ppermute", send_dn)
     if ops:
         COUNTS["p2p"] += len(ops)
         for work in dist.batch_isend_irecv(ops):
@@ -230,9 +320,10 @@ def ring_exchange(send_up: torch.Tensor, send_dn: torch.Tensor,
     return from_up, from_dn
 
 
-def _all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, op, name: str, group) -> torch.Tensor:
     out = x.clone()
     COUNTS["all_reduce"] += 1
+    _record(name, x)
     if dist.is_initialized():
         dist.all_reduce(out, op=op, group=_group(group))
     return out
@@ -240,19 +331,27 @@ def _all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
 
 def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum over the ranks (a new tensor; `x` is left as it is)."""
-    return _all_reduce(x, dist.ReduceOp.SUM, group)
+    return _all_reduce(x, dist.ReduceOp.SUM, "psum", group)
 
 
 def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
     """Maximum over the ranks (a new tensor)."""
-    return _all_reduce(x, dist.ReduceOp.MAX, group)
+    return _all_reduce(x, dist.ReduceOp.MAX, "pmax", group)
 
 
-def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+def all_gather(x: torch.Tensor, group=None,
+               rows: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The ranks' `x` stacked along rows in rank order (`all_gather` with
-    `tiled=True`)."""
+    `tiled=True`). `rows`, each rank's row count in rank order, gathers
+    bands of unequal heights: each travels padded to the tallest."""
     x = x.contiguous()
+    if rows is not None and len(set(rows)) > 1:
+        pad = x.new_zeros((max(rows) - x.shape[0],) + tuple(x.shape[1:]))
+        whole = all_gather(torch.cat([x, pad]), group)
+        n = max(rows)
+        return torch.cat([whole[i * n:i * n + r] for i, r in enumerate(rows)])
     COUNTS["all_gather"] += 1
+    _record("all_gather", x)
     if not dist.is_initialized():
         return x.clone()
     parts = [torch.empty_like(x) for _ in range(size_of(group))]

@@ -21,6 +21,12 @@ The V-cycle of `ops/multigrid.mg_solve_pressure`, decomposed over the ranks:
   restricted residual is gathered and the rest of the cycle runs
   replicated on every rank, on the single-device V-cycle of
   `ops/multigrid.py`; each rank keeps its own rows of the correction.
+  Bands of unequal heights (`domain.ShardedSolver`'s padded split) keep
+  level 0 sharded: each rank smooths its own band (with `use_pallas` on
+  the per-rank kernel), every block planned on the narrowest band; the
+  level-0 residual is gathered, and its restriction, the coarser levels
+  and the prolongation run replicated (`_Ops`), each rank adding its own
+  rows of the correction.
 
 The level schedule, smoother, restriction scale, tolerance and stall
 policy are `mg_solve_pressure`'s, so the cycles agree with the JAX
@@ -44,7 +50,7 @@ from ..ops.multigrid import (
 )
 from ..ops.sweeps import np_scalar_type, stall_update, stalled
 from . import mesh as ring
-from .spmd_step import rms_of_sum, sweep_blocks
+from .spmd_step import even_bands, rms_of_sum, sweep_blocks
 
 # keep a level sharded only while every rank holds at least this many rows
 MIN_SHARD_ROWS = 8
@@ -135,18 +141,31 @@ def make_spmd_mg_solve(plan: SpmdMGPlan, group=None, *, dtype, device,
                        tol: float, n_pre: int = 4, n_post: int = 4,
                        sor: float = MG_SMOOTHER_SOR,
                        max_cycles: int = MG_MAX_CYCLES,
-                       coarsest_sweeps: int = 40, use_pallas: bool = False):
+                       coarsest_sweeps: int = 40, use_pallas: bool = False,
+                       bands=None):
     """`solve(x_band, b_band) -> (x_band, cycles)` on (rows, nyl) interior
     bands. `use_pallas` runs the sharded levels' smoothing sweeps on the
     per-rank kernel (one 2kb-row exchange per kb sweeps, the same erosion
     accounting as `smooth_ca`); the transfers and the replicated tail stay
-    plain PyTorch, as they are outside any kernel in the JAX package."""
+    plain PyTorch, as they are outside any kernel in the JAX package.
+    `bands`, every rank's (first row, rows) at level 0, defaults to the
+    even split; unequal bands (nx0 does not divide, so the plan shards no
+    level) smooth level 0 on the bands and run the rest replicated."""
     n_dev, rank = ring.size_of(group), ring.rank_of(group)
     setup = plan.setup
     sizes, spacings, volp_levels = setup.sizes, setup.spacings, setup.volp_levels
     nx0, ny0 = sizes[0]
     n_cells = nx0 * ny0
     tail = _Ops(setup, dtype, device, n_pre, n_post, sor, coarsest_sweeps)
+    split = bands or even_bands(nx0, n_dev)
+    r0, rows0 = split[rank]
+    heights = [r for _, r in split]
+    uneven = len(set(heights)) > 1
+
+    def geometry(lvl, rows_l):
+        """(first row, rows of the narrowest band) of this rank's band at a
+        level smoothed on the bands: every rank plans the same blocks."""
+        return (r0, min(heights)) if lvl == 0 else (rank * rows_l, rows_l)
 
     def mine(stack):
         return None if stack is None else torch.as_tensor(stack[rank], device=device)
@@ -186,11 +205,12 @@ def make_spmd_mg_solve(plan: SpmdMGPlan, group=None, *, dtype, device,
         inv_ap = omega / (-volp_levels[lvl] * (2.0 * inv_dx2 + 2.0 * inv_dy2))
         nxl, nyl = sizes[lvl]
         rows_l = x.shape[0]
-        blocks = sweep_blocks(n_sweeps, max(1, (rows_l - extra) // 2))
+        first, narrow = geometry(lvl, rows_l)
+        blocks = sweep_blocks(n_sweeps, max(1, (narrow - extra) // 2))
 
         def masks(h):
             nreg = rows_l + 2 * h - 2
-            gi = torch.arange(nreg, device=device)[:, None] + rank * rows_l - h + 1
+            gi = torch.arange(nreg, device=device)[:, None] + first - h + 1
             jj = torch.arange(nyl, device=device)[None, :]
             red = (gi + jj) % 2 == 0
             dom = (gi >= 0) & (gi < nxl)
@@ -228,7 +248,8 @@ def make_spmd_mg_solve(plan: SpmdMGPlan, group=None, *, dtype, device,
         inv_dx2, inv_dy2 = spacings[lvl]
         nxl = sizes[lvl][0]
         rows = x.shape[0]
-        blocks = sweep_blocks(n_sweeps, max(1, rows // 2))
+        first, narrow = geometry(lvl, rows)
+        blocks = sweep_blocks(n_sweeps, max(1, narrow // 2))
         h_max = 2 * blocks[0]
         b_ext = extend_b_halo(b, group, h=h_max)
         for kb in blocks:
@@ -236,7 +257,7 @@ def make_spmd_mg_solve(plan: SpmdMGPlan, group=None, *, dtype, device,
             zc = x.new_zeros((rows + 2 * h, 1))
             ext = torch.cat([zc, assemble0(x, h=h), zc], dim=1)
             own, _ = shard_rb_sweep(
-                ext, b_ext[h_max - h:h_max + rows + h], rank * rows, nxg=nxl,
+                ext, b_ext[h_max - h:h_max + rows + h], first, nxg=nxl,
                 inv_dx2=inv_dx2, inv_dy2=inv_dy2, volp=volp_levels[lvl],
                 sor=omega, h=h, kb=kb)
             x = own[:, 1:-1]
@@ -283,6 +304,27 @@ def make_spmd_mg_solve(plan: SpmdMGPlan, group=None, *, dtype, device,
         x, r_post = smooth_ca(x, b, lvl, n_post, sor, extra=1 if want_rms else 0)
         return (x, r_post) if want_rms else x
 
+    def smooth_band0(x, b, n_sweeps, omega):
+        """Level 0's smoothing on this rank's band: (x, its own-row
+        residual)."""
+        if use_pallas:
+            x = smooth_kernel(x, b, 0, n_sweeps, omega)
+        else:
+            x, _ = smooth_ca(x, b, 0, n_sweeps, omega, extra=0)
+        return x, b - lap_rows(assemble0(x), 0)
+
+    def v_gathered(x, b):
+        """One V-cycle on unequal bands: level 0 smoothed on the bands, its
+        residual gathered, the transfers and the coarser levels replicated.
+        Returns (x, the cycle's own-row residual)."""
+        if len(sizes) == 1:
+            return smooth_band0(x, b, coarsest_sweeps, 1.5)
+        x, r = smooth_band0(x, b, n_pre, sor)
+        r_c = tail.restrict(ring.all_gather(r, group, rows=heights), 0)
+        e_c = tail.v_cycle(torch.zeros_like(r_c), r_c, 1)
+        x = x + tail.prolong(e_c, 0)[r0:r0 + rows0]
+        return smooth_band0(x, b, n_post, sor)
+
     def solve(x_band: torch.Tensor, b_band: torch.Tensor):
         def rms_of(r):
             return rms_of_sum(ring.psum(torch.sum(r * r).reshape(1), group),
@@ -291,15 +333,18 @@ def make_spmd_mg_solve(plan: SpmdMGPlan, group=None, *, dtype, device,
         def residual(x):
             return b_band - lap_rows(assemble0(x), 0)
 
-        if plan.n_shard == 0:
+        if uneven:
+            def cycle(x):
+                x, r = v_gathered(x, b_band)
+                return x, rms_of(r)
+        elif plan.n_shard == 0:
             # too few rows per rank: the whole hierarchy replicated, own
             # rows kept; b is gathered once per solve
-            rows = nx0 // n_dev
             bf = ring.all_gather(b_band, group)
 
             def cycle(x):
                 out = tail.v_cycle(ring.all_gather(x, group), bf, 0)
-                x = out[rank * rows:(rank + 1) * rows]
+                x = out[rank * rows0:(rank + 1) * rows0]
                 return x, rms_of(residual(x))
         elif use_pallas:
             def cycle(x):
@@ -316,11 +361,12 @@ def make_spmd_mg_solve(plan: SpmdMGPlan, group=None, *, dtype, device,
         tol_t = t(tol)
         x = x_band
         stale = it = 0
-        while it < max_cycles and best >= tol_t and not stalled(stale, it):
-            x, now = cycle(x)
-            stale, best = stall_update(now, rms, best, stale)
-            rms = now
-            it += 1
+        with ring.inner_loop() as trip:
+            while it < max_cycles and best >= tol_t and not stalled(stale, it) and trip():
+                x, now = cycle(x)
+                stale, best = stall_update(now, rms, best, stale)
+                rms = now
+                it += 1
         return x, it
 
     return solve

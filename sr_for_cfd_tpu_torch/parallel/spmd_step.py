@@ -4,9 +4,12 @@ The JAX package runs the whole outer iteration under `shard_map` with
 `ppermute` halo exchange; here every rank of a process group runs the same
 step on its own rows and the ranks trade rows through `mesh.ring_exchange`:
 
-* each rank owns `rows = nx // n_ranks` interior rows as (rows, ny + 2)
-  bands (the y-ghost columns included: the y boundary conditions are
-  rank-local);
+* each rank owns a band of interior rows as (rows, ny + 2) (the y-ghost
+  columns included: the y boundary conditions are rank-local): `nx //
+  n_ranks` rows on every rank here, the bands of `grid_sharding`'s padded
+  split under `parallel/domain.ShardedSolver` (one row fewer on the end
+  ranks). Every rank takes the block plan of the narrowest band, so the
+  ranks' collectives stay in step;
 * the inner solves exchange once per communication-avoiding block of k
   red-black sweeps: an H-row halo buys k sweeps whose halo-row updates are
   recomputed instead of communicated (H = 2k for the 5-point stencil and
@@ -43,7 +46,7 @@ import functools
 import time
 from dataclasses import dataclass
 from types import SimpleNamespace
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +102,35 @@ class SpmdState:
         return dataclasses.replace(self, **kw)
 
 
+def even_bands(nx: int, n_dev: int) -> Tuple[Tuple[int, int], ...]:
+    """(first interior row, rows) of each rank's band when nx divides."""
+    rows = nx // n_dev
+    return tuple((r * rows, rows) for r in range(n_dev))
+
+
+def local_band(state: SolverState, start: int, rows: int) -> "SpmdState":
+    """The rows [start, start + rows) of a whole-domain state as one rank's
+    share."""
+
+    def band(x):  # (nx + 2, ny + 2) -> own interior rows
+        return x[1 + start:1 + start + rows].clone()
+
+    def part(x):  # (nx, ny) -> own rows
+        return x[start:start + rows].clone()
+
+    return SpmdState(
+        u=band(state.u), v=band(state.v), p=band(state.p),
+        u_old=part(state.u_old), v_old=part(state.v_old),
+        p_old=part(state.p_old), ff=FaceFluxes(*(part(f) for f in state.ff)),
+        rms=state.rms.copy(), count=int(state.count),
+        converged=bool(state.converged), diverged=bool(state.diverged),
+        held=state.held, plat_best=state.plat_best.copy(),
+        plat_acc=state.plat_acc.copy(), plat_n=state.plat_n,
+        plat_stale=state.plat_stale, cau_u=band(state.cau_u_ref),
+        cau_v=band(state.cau_v_ref), cau_count=state.cau_count,
+    )
+
+
 def sweep_blocks(total: int, k_max: int) -> List[int]:
     """Split `total` sweeps into communication-avoiding blocks of at most
     `k_max` sweeps (largest first); one halo exchange per block."""
@@ -143,14 +175,14 @@ def _apply_bc_y(x_own: torch.Tensor, bc) -> torch.Tensor:
 
 
 def _make_rre_ops(case: CaseConfig, profile: Optional[BFSInletProfile],
-                  n_dev: int, rank: int):
+                  bands, rank: int):
     """Per-rank flatten / inject for decomposed RRE: the local vector is
     this rank's band of the single-device flat state
     (`extrapolate.flatten_state`), the domain x-ghost rows carried in
     per-rank slots that are zero off the boundary ranks, so the sum over
     the ranks of the partial Grams is the whole-vector Gram."""
-    nx, ny = case.mesh.nx, case.mesh.ny
-    rows = nx // n_dev
+    ny = case.mesh.ny
+    n_dev, rows = len(bands), bands[rank][1]
     bcs = {0: case.u_bc, 1: case.v_bc, 2: case.p_bc}
 
     def flatten(s: SpmdState) -> torch.Tensor:
@@ -190,17 +222,21 @@ def _make_rre_ops(case: CaseConfig, profile: Optional[BFSInletProfile],
 
 
 def _make_step(case: CaseConfig, profile: Optional[BFSInletProfile], group,
-               device: torch.device):
+               device: torch.device, bands):
     """The per-rank step `step(s, nu) -> (s, {'u', 'v', 'p'} inner
-    counts)`, closed over the case."""
+    counts)`, closed over the case; `bands` holds every rank's (first
+    interior row, rows)."""
     mcfg, fluid, st = case.mesh, case.fluid, case.settings
     nx, ny = mcfg.nx, mcfg.ny
     n_dev, rank = ring.size_of(group), ring.rank_of(group)
-    rows = nx // n_dev
-    if rows < 2:
+    r0, rows = bands[rank]
+    # the block plans: every rank takes the narrowest band's, so that the
+    # ranks make the same collectives
+    narrow = min(r for _, r in bands)
+    if narrow < 2:
         # the exchange fetches a 2-row halo from the immediate neighbour
         raise ValueError(
-            f"nx={nx} over {n_dev} '{AXIS}' devices leaves {rows} interior "
+            f"nx={nx} over {n_dev} '{AXIS}' devices leaves {narrow} interior "
             f"row(s) per rank; the halo exchange needs at least 2 "
             f"(use a coarser mesh axis or a finer grid)"
         )
@@ -219,7 +255,7 @@ def _make_step(case: CaseConfig, profile: Optional[BFSInletProfile], group,
         mg_plan = plan_spmd_mg(nx, ny, dx, dy, volp, n_dev, np.dtype(st.dtype),
                                min_size=st.mg_min_size)
         mg_solve = make_spmd_mg_solve(
-            mg_plan, group, dtype=dtype, device=device, tol=st.inner_tolerance,
+            mg_plan, group, bands=bands, dtype=dtype, device=device, tol=st.inner_tolerance,
             n_pre=st.mg_n_pre, n_post=st.mg_n_post,
             coarsest_sweeps=st.mg_coarsest_sweeps, use_pallas=use_pallas_p,
         )
@@ -228,7 +264,7 @@ def _make_step(case: CaseConfig, profile: Optional[BFSInletProfile], group,
     first, last = rank == 0, rank == n_dev - 1
 
     def red_mask():
-        ii = torch.arange(rows, device=device)[:, None] + rank * rows + 1
+        ii = torch.arange(rows, device=device)[:, None] + r0 + 1
         jj = torch.arange(ny, device=device)[None, :] + 1
         return (ii + jj) % 2 == 0
 
@@ -294,12 +330,14 @@ def _make_step(case: CaseConfig, profile: Optional[BFSInletProfile], group,
         rms = best = t(np.inf)
         tol = t(st.inner_tolerance)
         stale = checks = it = 0
-        while it < st.inner_max_iter and rms >= tol and not stalled(stale, checks):
-            f, now = run_check(f)
-            stale, best = stall_update(now, rms, best, stale)
-            rms = now
-            checks += 1
-            it += check_every
+        with ring.inner_loop() as trip:
+            while (it < st.inner_max_iter and rms >= tol and not stalled(stale, checks)
+                   and trip()):
+                f, now = run_check(f)
+                stale, best = stall_update(now, rms, best, stale)
+                rms = now
+                checks += 1
+                it += check_every
         return f, it
 
     def sweep_solve(x_own, residual_fn, sor, check_every: int):
@@ -333,7 +371,7 @@ def _make_step(case: CaseConfig, profile: Optional[BFSInletProfile], group,
     # same values in the same order as the exchange-per-half-sweep
     # schedule, so the trajectories are the same bit for bit.
     d_mom = 2 if quick else 1
-    k_max_mom = (rows - (1 if quick else 0)) // 2
+    k_max_mom = (narrow - (1 if quick else 0)) // 2
 
     def extend_consts(cs, H: int):
         """(n, rows + 2H, ny): one stacked exchange for every constant's
@@ -346,7 +384,7 @@ def _make_step(case: CaseConfig, profile: Optional[BFSInletProfile], group,
     @functools.lru_cache(maxsize=None)
     def region_masks(H: int, d: int):
         nreg = rows + 2 * H - 2 * d
-        gi = torch.arange(nreg, device=device)[:, None] + rank * rows - H + d
+        gi = torch.arange(nreg, device=device)[:, None] + r0 - H + d
         jj = torch.arange(ny, device=device)[None, :] + 1
         red = (gi + 1 + jj) % 2 == 0
         dom = (gi >= 0) & (gi < nx)
@@ -361,7 +399,7 @@ def _make_step(case: CaseConfig, profile: Optional[BFSInletProfile], group,
         `block_override(f, kb, with_rms) -> (f, rms | None)` replaces the
         whole block (the per-rank kernel path). Returns (f, sweeps_run)."""
         extra = 1 if d == 2 else 0
-        blocks = sweep_blocks(check_every, (rows - extra) // 2)
+        blocks = sweep_blocks(check_every, (narrow - extra) // 2)
         H_max = 2 * blocks[0] + extra
         residual = None if block_override is not None else make_residual(H_max)
 
@@ -448,7 +486,7 @@ def _make_step(case: CaseConfig, profile: Optional[BFSInletProfile], group,
             # row 9: one 2kb-row exchange, then kb sweeps on the card
             from .spmd_kernels import extend_b_halo, shard_rb_sweep
 
-            p_blocks = sweep_blocks(st.pressure_check_every, rows // 2)
+            p_blocks = sweep_blocks(st.pressure_check_every, narrow // 2)
             h_max = 2 * p_blocks[0]
             b_ext_full = extend_b_halo(rho / dt * div_sum, group, h=h_max)
             kernel_kw = dict(nxg=nx, inv_dx2=1.0 / (dx * dx), inv_dy2=1.0 / (dy * dy),
@@ -458,7 +496,7 @@ def _make_step(case: CaseConfig, profile: Optional[BFSInletProfile], group,
                 h = 2 * kb
                 ext = assemble(f, h, glow_p, ghigh_p)
                 own, ss = shard_rb_sweep(ext, b_ext_full[h_max - h:h_max + rows + h],
-                                         rank * rows, h=h, kb=kb, **kernel_kw)
+                                         r0, h=h, kb=kb, **kernel_kw)
                 if not with_rms:
                     return own, None
                 return own, rms_of_sum(ring.psum(ss.reshape(1), group), n_cells, dtype)
@@ -574,7 +612,7 @@ def _make_step(case: CaseConfig, profile: Optional[BFSInletProfile], group,
     return step
 
 
-def _make_rre_stage(case: CaseConfig, profile, group):
+def _make_rre_stage(case: CaseConfig, profile, group, bands):
     """Decomposed reduced-rank extrapolation, run after each step: the
     snapshot cadence, coefficient solve, plausibility gate and injection of
     the single-device loop, with the drift and the difference Gram summed
@@ -582,8 +620,7 @@ def _make_rre_stage(case: CaseConfig, profile, group):
     replicated. As in the JAX package, the Cauchy reference of the step
     that jumps holds the field from before the jump."""
     st = case.settings
-    n_dev, rank = ring.size_of(group), ring.rank_of(group)
-    flatten, inject, n_flat = _make_rre_ops(case, profile, n_dev, rank)
+    flatten, inject, n_flat = _make_rre_ops(case, profile, bands, ring.rank_of(group))
     K = st.rre_depth
 
     def stage(s: SpmdState, buf: rre.RREBuffer):
@@ -633,11 +670,8 @@ class SpmdSolver:
         if isinstance(group, ring.Mesh):
             group = group.axis_group(AXIS)
         n_dev = ring.size_of(group)
-        if case.mesh.nx % n_dev != 0:
-            raise ValueError(
-                f"nx = {case.mesh.nx} must divide over {n_dev} '{AXIS}' "
-                f"devices (interior-row decomposition)"
-            )
+        # every rank's (first interior row, rows)
+        self.bands = self._split(case, n_dev)
         if case.settings.spmd_devices not in (1, n_dev):
             raise ValueError(
                 f"spmd_devices={case.settings.spmd_devices} does not match "
@@ -661,11 +695,11 @@ class SpmdSolver:
         self.case = case
         self.group = group
         self.n_ranks, self.rank = n_dev, ring.rank_of(group)
-        self.rows = case.mesh.nx // n_dev
+        self.rows = self.bands[self.rank][1]
         self.profile = inlet_profile(case, self.device)
-        self._step = _make_step(case, self.profile, group, self.device)
+        self._step = _make_step(case, self.profile, group, self.device, self.bands)
         self._rre_stage, self._n_flat = (
-            _make_rre_stage(case, self.profile, group)
+            _make_rre_stage(case, self.profile, group, self.bands)
             if case.settings.rre_every > 0 else (None, 0))
         self._nu = torch.tensor(case.fluid.nu, dtype=torch_dtype(case),
                                 device=self.device)
@@ -677,27 +711,22 @@ class SpmdSolver:
         self.inner_counts = {"u": 0, "v": 0, "p": 0}
         self.steps_run = 0
 
+    @staticmethod
+    def _split(case: CaseConfig, n_dev: int):
+        if case.mesh.nx % n_dev != 0:
+            raise ValueError(
+                f"nx = {case.mesh.nx} must divide over {n_dev} '{AXIS}' "
+                f"devices (interior-row decomposition)"
+            )
+        return even_bands(case.mesh.nx, n_dev)
+
     def _to_local(self, state: SolverState) -> SpmdState:
         """This rank's rows of a whole-domain state."""
-        r0, r1 = self.rank * self.rows, (self.rank + 1) * self.rows
+        return local_band(state, *self.bands[self.rank])
 
-        def band(x):  # (nx + 2, ny + 2) -> own interior rows
-            return x[1 + r0:1 + r1].clone()
-
-        def part(x):  # (nx, ny) -> own rows
-            return x[r0:r1].clone()
-
-        return SpmdState(
-            u=band(state.u), v=band(state.v), p=band(state.p),
-            u_old=part(state.u_old), v_old=part(state.v_old),
-            p_old=part(state.p_old), ff=FaceFluxes(*(part(f) for f in state.ff)),
-            rms=state.rms.copy(), count=int(state.count),
-            converged=bool(state.converged), diverged=bool(state.diverged),
-            held=state.held, plat_best=state.plat_best.copy(),
-            plat_acc=state.plat_acc.copy(), plat_n=state.plat_n,
-            plat_stale=state.plat_stale, cau_u=band(state.cau_u_ref),
-            cau_v=band(state.cau_v_ref), cau_count=state.cau_count,
-        )
+    def _gather(self, band: torch.Tensor) -> torch.Tensor:
+        """The ranks' bands stacked in rank order (a collective)."""
+        return ring.all_gather(band, self.group, rows=[r for _, r in self.bands])
 
     def step(self) -> Dict[str, int]:
         """One outer step (no RRE, no chunk bookkeeping); returns its inner
@@ -764,7 +793,7 @@ class SpmdSolver:
                                   ("v", self.local.v, 1, self.case.v_bc),
                                   ("p", self.local.p, 2, self.case.p_bc)):
             full = band.new_zeros((nx + 2, ny + 2))
-            full[1:-1] = ring.all_gather(band, self.group)
+            full[1:-1] = self._gather(band)
             full = apply_bfs_inlet(apply_bc(full, bc), k, self.profile)
             out[name] = full.cpu().numpy()
         return out

@@ -1,17 +1,13 @@
 """Run the port's row-decomposed solver on several gloo ranks on the CPU.
 
-`run_ranks(tmp_dir, world, cases)` spawns `world` processes (the `spawn`
-start method: JAX's threads make `fork` unsafe in the test process), joins
-them through a `FileStore` in `tmp_dir` (no TCP ports), runs each case
-function of this module on every rank and returns rank 0's results. Every
-join has its own timeout; a rank's traceback is written to `tmp_dir` and
-raised in the parent. This module imports no JAX, so the ranks show that
-the port runs without it.
+`run_ranks(tmp_dir, world, cases)` runs each case function of this module
+on `world` gloo ranks through the package's launcher
+(`sr_for_cfd_tpu_torch.parallel.ranks.run_in_ranks`: forkserver children
+that never see the test process's JAX threads, a `FileStore` in `tmp_dir`,
+a timeout for each rank's join, a rank's traceback raised in the parent)
+and returns rank 0's results. This module imports no JAX, so the ranks
+show that the port runs without it.
 """
-
-import os
-import pickle
-import traceback
 
 import numpy as np
 import torch
@@ -19,13 +15,14 @@ import torch
 JOIN_TIMEOUT = 240  # seconds, for each rank's join
 
 
-def solve_case(maker, kw):
+def solve_case(maker, kw, group=None):
     """SpmdSolver on the port's case `maker(**kw)` (a name in
-    `solver/cases.py`), solved; with the inner counts of every step run."""
+    `solver/cases.py`) over `group` (default: every rank), solved; with the
+    inner counts of every step run."""
     from sr_for_cfd_tpu_torch.parallel.spmd_step import SpmdSolver
     from sr_for_cfd_tpu_torch.solver import cases
 
-    solver = SpmdSolver(getattr(cases, maker)(device="cpu", **kw).case, device="cpu")
+    solver = SpmdSolver(getattr(cases, maker)(device="cpu", **kw).case, group, device="cpu")
     per_step = []
     step = solver._step
 
@@ -43,18 +40,31 @@ def solve_case(maker, kw):
     return out
 
 
-def warm_solve_save(maker, kw, fields, count, out_base):
-    """SpmdSolver warm-started from (ny, nx) `fields` at `count`, solved,
-    its `.dat` pair written (rank 0) under `out_base`: (count, interior
-    fields)."""
+def warm_solve_save(maker, kw, fields, count, out_base, group=None):
+    """SpmdSolver over `group` (default: every rank) warm-started from
+    (ny, nx) `fields` at `count`, solved, its `.dat` pair written (rank 0)
+    under `out_base`: (count, interior fields)."""
     from sr_for_cfd_tpu_torch.parallel.spmd_step import SpmdSolver
     from sr_for_cfd_tpu_torch.solver import cases
 
-    solver = SpmdSolver(getattr(cases, maker)(device="cpu", **kw).case, device="cpu")
+    solver = SpmdSolver(getattr(cases, maker)(device="cpu", **kw).case, group,
+                        device="cpu")
     solver.warm_start(fields, count=count)
     solver.solve()
     solver.save_results(out_base)
     return solver.local.count, solver.interior_fields()
+
+
+def one_rank(cases):
+    """Each of `cases` ({name: (function name, kwargs)}, functions that
+    take `group`) on a gloo group of rank 0 alone: a one-rank world inside
+    the spawn. The other ranks only join the group's creation (None)."""
+    import torch.distributed as dist
+
+    group = dist.new_group([0])
+    if dist.get_rank() != 0:
+        return None
+    return {name: globals()[fn](group=group, **kw) for name, (fn, kw) in cases.items()}
 
 
 def halo_pressure(p, ff, kw):
@@ -190,52 +200,54 @@ def dp_fit(state, x_lr, x_hr, kw):
     return out.loss_history, {k: v.numpy() for k, v in out.params.items()}, same
 
 
-def _worker(rank, world, store, out_dir, cases):
-    torch.set_num_threads(1)
-    import torch.distributed as dist
+def sharded_solve(maker, kw, max_chunks=None):
+    """ShardedSolver on the port's case `maker(**kw)` over `make_mesh(n,
+    "x")` of every rank, solved: (count, the gathered state's padded u, v,
+    p), the bands it split the rows into, the counts of its residual
+    history, and this rank's calls of row 9's wrapper."""
+    from sr_for_cfd_tpu_torch.parallel import spmd_kernels
+    from sr_for_cfd_tpu_torch.parallel.domain import ShardedSolver
+    from sr_for_cfd_tpu_torch.parallel.mesh import make_mesh
+    from sr_for_cfd_tpu_torch.solver import cases
 
+    solver = ShardedSolver(getattr(cases, maker)(device="cpu", **kw).case,
+                           make_mesh(axis_name="x"), device="cpu")
+    wrapper, calls = spmd_kernels.shard_rb_sweep, [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return wrapper(*a, **k)
+
+    spmd_kernels.shard_rb_sweep = counted
     try:
-        dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                                rank=rank, world_size=world)
-        results = {name: globals()[fn](**kw) for name, (fn, kw) in cases.items()}
-        dist.destroy_process_group()
-        if rank == 0:
-            with open(os.path.join(out_dir, "results.pkl"), "wb") as f:
-                pickle.dump(results, f)
-    except BaseException:
-        with open(os.path.join(out_dir, f"error_rank{rank}.txt"), "w") as f:
-            f.write(traceback.format_exc())
-        raise
+        state = solver.solve(max_chunks=max_chunks)
+    finally:
+        spmd_kernels.shard_rb_sweep = wrapper
+    return dict(count=state.count, fields={k: getattr(state, k).numpy() for k in "uvp"},
+                bands=solver.bands, history=list(solver.residual_history.iterations),
+                row9_calls=calls[0])
+
+
+def chunk_census(maker, kw):
+    """The port's `spmd_chunk_census` of `maker(**kw)` on every rank."""
+    from sr_for_cfd_tpu_torch.parallel.comm_budget import spmd_chunk_census
+    from sr_for_cfd_tpu_torch.parallel.mesh import make_mesh
+    from sr_for_cfd_tpu_torch.solver import cases
+
+    return spmd_chunk_census(getattr(cases, maker)(device="cpu", **kw).case,
+                             make_mesh(axis_name="x"), device="cpu")
+
+
+def _run_cases(cases):
+    return {name: globals()[fn](**kw) for name, (fn, kw) in cases.items()}
 
 
 def run_ranks(tmp_dir, world, cases):
     """{case name: rank 0's result} of `cases` ({name: (function name in
     this module, kwargs)}) run on `world` gloo ranks."""
-    import multiprocessing as mp
+    from sr_for_cfd_tpu_torch.parallel.ranks import run_in_ranks
 
-    tmp_dir = str(tmp_dir)
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_worker,
-                         args=(r, world, os.path.join(tmp_dir, "store"), tmp_dir, cases))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(JOIN_TIMEOUT)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    errors = sorted(n for n in os.listdir(tmp_dir) if n.startswith("error"))
-    if errors:
-        with open(os.path.join(tmp_dir, errors[0])) as f:
-            raise RuntimeError(f"{errors[0]}:\n{f.read()}")
-    codes = [p.exitcode for p in procs]
-    if any(c != 0 for c in codes):
-        raise RuntimeError(f"ranks exited with {codes} (a join timed out after "
-                           f"{JOIN_TIMEOUT} s, or a rank was killed)")
-    with open(os.path.join(tmp_dir, "results.pkl"), "rb") as f:
-        return pickle.load(f)
+    return run_in_ranks(_run_cases, world, cases, timeout=JOIN_TIMEOUT, tmp_dir=tmp_dir)
 
 
 def max_abs(a, b):

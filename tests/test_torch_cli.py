@@ -36,7 +36,8 @@ def _options(parser):
 def test_parser_matches_jax_s():
     """The JAX package's subcommands, with the same option names, defaults,
     choices and set_defaults; `--device` (default the card) on every
-    subcommand that runs a solve or a training."""
+    subcommand that runs a solve, a training or a measurement (`plan`
+    times the single-device step)."""
     jsub, tsub = _subparsers(jcli.build_parser()), _subparsers(tcli.build_parser())
     assert list(tsub) == list(jsub) == ["cavity", "bfs", "hybrid", "sweep", "train",
                                         "bench", "plan"]
@@ -46,7 +47,7 @@ def test_parser_matches_jax_s():
         assert {k: v for k, v in tp._defaults.items() if k != "fn"} == \
             {k: v for k, v in jp._defaults.items() if k != "fn"}, name
         devices = [a for a in tp._actions if a.dest == "device"]
-        if name in ("bench", "plan"):
+        if name == "bench":
             assert not devices
         else:
             assert devices[0].default == "cuda" and devices[0].choices == ["cuda", "cpu"]
@@ -153,14 +154,31 @@ def test_sweep_and_train_via_main(tmp_path, capsys, monkeypatch):
     (["sweep", "--spmd", "2", "--device", "cpu"], "A11"),
     (["sweep", "--device-mesh", "--device", "cpu"], "A11"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else v)
-def test_unported_subcommands_exit_naming_their_item(argv, item, monkeypatch):
-    """`bench` and `plan` exit non-zero naming their ROADMAP item. The
-    decomposed commands, which exited naming A11 before they were ported
-    (A11 items 1-2), now need a process group of N ranks: without one,
+def test_unported_subcommands_exit_naming_their_item(argv, item, monkeypatch, tmp_path,
+                                                      capsys):
+    """`bench` exits non-zero naming its ROADMAP item. The commands that
+    exited naming A11 before they were ported now run: `plan` on the CPU
+    measures the single-device ms/step here, runs the census of 2 ranks in
+    gloo child processes and writes its JSON (the source naming the CPU);
+    the decomposed commands need a process group of N ranks: without one,
     `cavity`, `bfs` and `hybrid` with `--spmd 2` exit before any solve,
     naming `torchrun --nproc-per-node 2`, and `sweep` hands `--spmd` and
     `--device-mesh` to `generate_training_data`."""
     import sr_for_cfd_tpu_torch.workflow.sweep as sweep
+
+    if argv == ["plan"]:
+        out = tmp_path / "plan.json"
+        tcli.main(argv + ["--device", "cpu", "--nx", "8", "--ny", "8", "--dt", "2e-3",
+                          "--re", "100", "--scheme", "UPWIND", "--dtype", "float64",
+                          "--devices", "1", "2", "--trip-window", "2", "--json", str(out)])
+        text = capsys.readouterr().out
+        plan = json.loads(out.read_text())
+        assert item not in text and "decomposition plan: 8x8" in text
+        assert [r["n_devices"] for r in plan["rows"]] == [1, 2]
+        assert all(r["feasible"] for r in plan["rows"])
+        assert plan["rows"][1]["collective_calls_per_step"] > 0
+        assert plan["ms_per_step_source"] == "measured live on cpu"
+        return
 
     if argv[0] == "sweep":
         seen = {}
@@ -173,7 +191,7 @@ def test_unported_subcommands_exit_naming_their_item(argv, item, monkeypatch):
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)
     text = str(e.value.code)
-    if argv[0] in ("bench", "plan"):
+    if argv[0] == "bench":
         assert e.value.code != 0 and f"item {item}" in text
     else:
         assert text.startswith("--spmd 2 needs 2 devices; backend has 1 (")

@@ -3,7 +3,6 @@ the CPU, at a small size: coarse 10x10 -> bicubic SR -> warm and cold
 32x32 fine solves."""
 
 import os
-import subprocess
 import sys
 import tempfile
 
@@ -100,24 +99,17 @@ def test_ml_fine_resolves_the_model_like_jax(where, tmp_path, monkeypatch, capsy
         np.testing.assert_allclose(tf[c], ref, rtol=0, atol=1e-5 * np.abs(ref).max())
 
 
-def test_conventional_h5_parts_without_h5py_raise_naming_it():
+def test_conventional_h5_parts_without_h5py_raise_naming_it(monkeypatch):
     """Where the conventional .h5 parts exist and h5py does not import,
     the model load raises an ImportError naming h5py; it never falls back
-    to bicubic."""
-    code = (
-        "import sys\n"
-        "sys.modules['h5py'] = None\n"
-        "import numpy as np\n"
-        "from sr_for_cfd_tpu_torch.workflow.hybrid import run_ml_accelerated_fine_simulation\n"
-        "f = {c: np.zeros((10, 10), np.float32) for c in 'uvp'}\n"
-        "try:\n"
-        "    run_ml_accelerated_fine_simulation(400, 400, 400, f, hr_dim=400, case='bfs',\n"
-        "        model_dir='artifacts', model_suffix='swish_tpu_bfs', device='cpu',\n"
-        "        save_results=False, verbose=False)\n"
-        "except ImportError as e:\n"
-        "    assert 'h5py' in str(e), e\n"
-        "    print('ok')\n"
-    )
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stdout + out.stderr
+    to bicubic. (The port imports h5py only inside the functions that need
+    it, `tests/test_torch_imports.py`, so blocking it here blocks it for the
+    whole call.)"""
+    from sr_for_cfd_tpu_torch.workflow.hybrid import run_ml_accelerated_fine_simulation
+
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    f = {c: np.zeros((10, 10), np.float32) for c in "uvp"}
+    with pytest.raises(ImportError, match="h5py"):
+        run_ml_accelerated_fine_simulation(
+            400, 400, 400, f, hr_dim=400, case="bfs", model_dir=os.path.join(ROOT, "artifacts"),
+            model_suffix="swish_tpu_bfs", device="cpu", save_results=False, verbose=False)

@@ -66,14 +66,24 @@ def test_port_file_imports_h5py_only_inside_functions(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {sorted(bad)} at module level"
 
 
-def test_hdf5_functions_without_h5py_raise_naming_it():
-    """With h5py unimportable the sweep and the training pipeline import,
-    and each function that reads or writes .h5 raises an ImportError that
-    names h5py."""
+@pytest.fixture(scope="module")
+def without_optional_packages():
+    """One interpreter with jax, flax, h5py, msgpack, matplotlib, tensorflow
+    and the JAX package unimportable: it imports every module of the port
+    and builds the command line's parser ('imports ok'), then calls each
+    function that reads or writes .h5 ('h5py ok' when each raised an
+    ImportError naming h5py). The finished process."""
     code = (
-        "import sys\n"
-        "sys.modules['h5py'] = None\n"
-        "import sr_for_cfd_tpu_torch.workflow.sweep as sw\n"
+        "import sys, pkgutil, importlib\n"
+        "for m in ('jax', 'flax', 'h5py', 'msgpack', 'matplotlib', 'tensorflow',\n"
+        "          'sr_for_cfd_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import sr_for_cfd_tpu_torch as pkg\n"
+        "for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "import sr_for_cfd_tpu_torch.cli as cli\n"
+        "cli.build_parser().parse_args(['hybrid'])\n"
+        "print('imports ok', flush=True)\n"
         "import sr_for_cfd_tpu_torch.workflow.training as tr\n"
         "from sr_for_cfd_tpu_torch.config import MeshParameters\n"
         "from sr_for_cfd_tpu_torch.io import hdf5\n"
@@ -88,29 +98,23 @@ def test_hdf5_functions_without_h5py_raise_naming_it():
         "        assert 'h5py' in str(e), e\n"
         "    else:\n"
         "        raise AssertionError('no ImportError')\n"
-        "print('ok')\n"
+        "print('h5py ok')\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
 
 
-def test_port_imports_without_optional_packages():
+def test_hdf5_functions_without_h5py_raise_naming_it(without_optional_packages):
+    """With h5py unimportable the sweep and the training pipeline import,
+    and each function that reads or writes .h5 raises an ImportError that
+    names h5py."""
+    out = without_optional_packages
+    assert out.returncode == 0 and out.stdout.split()[-2:] == ["h5py", "ok"], out.stderr
+
+
+def test_port_imports_without_optional_packages(without_optional_packages):
     """Import every module of the port with jax, flax, h5py, msgpack,
     matplotlib and tensorflow made unimportable, and build the command
     line's parser."""
-    code = (
-        "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'flax', 'h5py', 'msgpack', 'matplotlib', 'tensorflow',\n"
-        "          'sr_for_cfd_tpu'):\n"
-        "    sys.modules[m] = None\n"
-        "import sr_for_cfd_tpu_torch as pkg\n"
-        "for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
-        "    importlib.import_module(info.name)\n"
-        "import sr_for_cfd_tpu_torch.cli as cli\n"
-        "cli.build_parser().parse_args(['hybrid'])\n"
-        "print('ok')\n"
-    )
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    out = without_optional_packages
+    assert out.stdout.startswith("imports ok\n"), out.stderr

@@ -5,7 +5,6 @@ without h5py and matplotlib (the two .dat files and one skip line per
 skipped writer)."""
 
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -26,7 +25,6 @@ from sr_for_cfd_tpu_torch.workflow import hybrid as thybrid
 # the grids are tiny: more than one intra-op thread only adds overhead
 torch.set_num_threads(1)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUITE = ("_full.dat", "_centerline.dat", ".h5", "_centerlines.png", "_contours.png",
          "_convergence.png")
 
@@ -138,28 +136,24 @@ def test_superres_and_field_plots_write_their_files(tmp_path):
     assert sorted(os.listdir(tmp_path)) == ["cl.png", "co.png", "sr.png"]
 
 
-def test_suite_without_h5py_and_matplotlib_writes_the_dat_files(tmp_path):
+def test_suite_without_h5py_and_matplotlib_writes_the_dat_files(tmp_path, monkeypatch,
+                                                               capsys):
     """With h5py and matplotlib unimportable (as on the card's machine):
     each phase of a hybrid run writes its two .dat files, and each skipped
-    writer prints one line naming its package and the files not written."""
-    code = (
-        "import sys\n"
-        "sys.modules['h5py'] = None\n"
-        "sys.modules['matplotlib'] = None\n"
-        "import torch\n"
-        "torch.set_num_threads(1)\n"
-        "from sr_for_cfd_tpu_torch.workflow.hybrid import run_hybrid_experiment\n"
-        "run_hybrid_experiment(Re=100, lr_dim=10, hr_dim=20, case='bfs',\n"
-        "    max_iterations_coarse=20, max_iterations_ml=5, max_iterations_normal=5,\n"
-        f"    verbose=False, chunk_size=5, output_dir={str(tmp_path)!r}, device='cpu')\n"
-    )
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
+    writer prints one line naming its package and the files not written.
+    (The port imports both only inside the functions that need them,
+    `tests/test_torch_imports.py`, so blocking them here blocks them for
+    the whole run.)"""
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    thybrid.run_hybrid_experiment(Re=100, lr_dim=10, hr_dim=20, case="bfs",
+                                  max_iterations_coarse=20, max_iterations_ml=5,
+                                  max_iterations_normal=5, verbose=False, chunk_size=5,
+                                  output_dir=str(tmp_path), device="cpu")
+    lines = capsys.readouterr().out.splitlines()
     files = sorted(os.listdir(tmp_path))
     assert len(files) == 6 and all(f.endswith(("_full.dat", "_centerline.dat"))
                                    for f in files)
-    lines = out.stdout.splitlines()
     h5 = [ln for ln in lines if ln.startswith("  (HDF5 group skipped: ImportError: ")]
     plots = [ln for ln in lines if ln.startswith("  (plots skipped: ImportError: ")]
     comparison = [ln for ln in lines

@@ -25,9 +25,9 @@ route the pressure counts too, equal the JAX single-device solver's, which
 JAX's `SpmdSolver` matches by construction (the same loops, exit tests and
 cadence on globally summed residuals).
 
-A one-rank run in a spawned child matches the port's single-device
-`CFDSolver` bit for bit on the sweeps route and within 1e-12 on the
-multigrid route (float64).
+A one-rank run (a gloo group of one rank inside the spawn) matches the
+port's single-device `CFDSolver` bit for bit on the sweeps route and
+within 1e-12 on the multigrid route (float64).
 """
 
 import numpy as np
@@ -59,6 +59,7 @@ ONE_RANK = {
     "multigrid": dict(Re=100, nx=32, ny=32, dt=2e-3, scheme="UPWIND", dtype="float64",
                       chunk_size=5, max_iterations=10, pressure_solver="multigrid"),
 }
+WARM_KW = dict(ONE_RANK["sweeps"], max_iterations=12)
 
 
 def _halo_inputs():
@@ -80,14 +81,23 @@ def _fluxes(u, v):
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
     u, v, p0 = _halo_inputs()
+    one_dir = tmp_path_factory.mktemp("spmd1")
+    one = {k: ("solve_case", dict(maker="make_cavity_solver", kw=kw))
+           for k, kw in ONE_RANK.items()}
+    one["warm"] = ("warm_solve_save", dict(
+        maker="make_cavity_solver", kw=WARM_KW, fields=_warm_fields(), count=5,
+        out_base=str(one_dir / "spmd" / "cavity")))
     cases = {
         "halo": ("halo_pressure", dict(p=p0, ff=_fluxes(u, v), kw=HALO_KW)),
         "rre": ("solve_case", dict(maker="make_cavity_solver", kw=RRE_CAVITY)),
         "pallas_cavity": ("solve_case", dict(maker="make_cavity_solver",
                                              kw=PALLAS_CAVITY)),
         "pallas_bfs": ("solve_case", dict(maker="make_bfs_solver", kw=PALLAS_BFS)),
+        "one_rank": ("one_rank", dict(cases=one)),
     }
-    return spmd_ranks.run_ranks(tmp_path_factory.mktemp("spmd4"), WORLD, cases)
+    out = spmd_ranks.run_ranks(tmp_path_factory.mktemp("spmd4"), WORLD, cases)
+    out["one_rank_dir"] = one_dir
+    return out
 
 
 def test_halo_pressure_matches_jax(port):
@@ -147,19 +157,13 @@ def _warm_fields():
     return {c: g.standard_normal((16, 16)) * 0.05 for c in "uvp"}
 
 
-def test_one_rank_matches_single_device(tmp_path):
+def test_one_rank_matches_single_device(port, tmp_path):
     """SpmdSolver on one gloo rank against CFDSolver on the same case: the
     sweeps and multigrid routes from the cold start, and a warm start at
     count 5 whose `.dat` pair rank 0 writes."""
     from sr_for_cfd_tpu_torch.solver.cases import make_cavity_solver
 
-    cases = {k: ("solve_case", dict(maker="make_cavity_solver", kw=kw))
-             for k, kw in ONE_RANK.items()}
-    warm_kw = dict(ONE_RANK["sweeps"], max_iterations=12)
-    cases["warm"] = ("warm_solve_save", dict(
-        maker="make_cavity_solver", kw=warm_kw, fields=_warm_fields(), count=5,
-        out_base=str(tmp_path / "spmd" / "cavity")))
-    got = spmd_ranks.run_ranks(tmp_path, 1, cases)
+    got, one_dir = port["one_rank"], port["one_rank_dir"]
     for name, kw in ONE_RANK.items():
         ref = make_cavity_solver(device="cpu", **kw)
         ref.solve(verbose=False, save_results=False)
@@ -168,7 +172,7 @@ def test_one_rank_matches_single_device(tmp_path):
         for k in "uvp":
             assert max_abs(got[name]["fields"][k], getattr(ref.state, k).numpy()) <= tol
 
-    ref = make_cavity_solver(device="cpu", **warm_kw)
+    ref = make_cavity_solver(device="cpu", **WARM_KW)
     ref.warm_start(_warm_fields(), count=5)
     ref.solve(str(tmp_path / "single" / "cavity"), verbose=False)
     count, fields = got["warm"]
@@ -176,5 +180,5 @@ def test_one_rank_matches_single_device(tmp_path):
     for k in "uvp":
         np.testing.assert_array_equal(fields[k], ref.interior_fields()[k])
     for suffix in ("_full.dat", "_centerline.dat"):
-        assert ((tmp_path / "spmd" / f"cavity{suffix}").read_text()
+        assert ((one_dir / "spmd" / f"cavity{suffix}").read_text()
                 == (tmp_path / "single" / f"cavity{suffix}").read_text())

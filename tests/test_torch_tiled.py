@@ -169,28 +169,25 @@ def test_create_custom_case_matches_jax(tmp_path):
 
 def test_top_level_exports_match_jax():
     """Every name the JAX package exports at its top level, eagerly or
-    lazily, is exported by the port, SpmdSolver and the case-batched
-    sharded solver included, except the GSPMD solver, whose lookup names
-    ROADMAP item A11."""
-    sharded = ("ShardedSolver",)
+    lazily, is exported by the port, SpmdSolver, the padded-row
+    ShardedSolver and the case-batched sharded solver included."""
+    from sr_for_cfd_tpu_torch.parallel.domain import ShardedSolver
     from sr_for_cfd_tpu_torch.parallel.spmd_batch import batched_spmd_cavity_solve
     from sr_for_cfd_tpu_torch.parallel.spmd_step import SpmdSolver
 
     assert sr_for_cfd_tpu_torch.SpmdSolver is SpmdSolver
+    assert sr_for_cfd_tpu_torch.ShardedSolver is ShardedSolver
     assert sr_for_cfd_tpu_torch.batched_spmd_cavity_solve is batched_spmd_cavity_solve
     assert callable(sr_for_cfd_tpu_torch.SpmdSolver)
     public = [n for n, v in vars(sr_for_cfd_tpu).items()
               if not n.startswith("_") and not isinstance(v, types.ModuleType)]
     lazy = ["SRModel", "ml_super_resolution", "run_hybrid_experiment",
-            "batched_spmd_cavity_solve"]
+            "batched_spmd_cavity_solve", "ShardedSolver"]
     for name in public + lazy:
         assert hasattr(sr_for_cfd_tpu_torch, name), name
         j = getattr(sr_for_cfd_tpu, name)
         t = getattr(sr_for_cfd_tpu_torch, name)
         assert callable(t) == callable(j), name
-    for name in sharded:
-        with pytest.raises(AttributeError, match="queue A, item A11"):
-            getattr(sr_for_cfd_tpu_torch, name)
     from sr_for_cfd_tpu_torch import create_lid_driven_cavity
 
     assert create_lid_driven_cavity is tcases.create_lid_driven_cavity
